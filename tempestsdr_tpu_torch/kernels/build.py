@@ -1,0 +1,75 @@
+"""Builds the CUDA sources in ../csrc into shared libraries with a plain C
+interface and loads them with ctypes.
+
+Each source compiles with nvcc for sm_90a into build/lib<name>-<hash>.so at
+first use; the hash of the source names the library, so an edited source
+never loads a stale build. build() starts one nvcc per missing library, all
+at once, and waits for them together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD = os.path.join(_PKG, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}  # nvcc's output (ptxas register/smem report) per source
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+
+
+def build(names) -> None:
+    """Compile every named source whose library is missing, in parallel."""
+    os.makedirs(BUILD, exist_ok=True)
+    jobs = []
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built first if needed."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(_lib_path(name))
+            _LOADED[name] = lib
+        return lib

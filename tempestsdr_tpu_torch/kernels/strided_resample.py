@@ -1,0 +1,99 @@
+"""Kernel K1: the m == 2 strided box resampler as a CUDA kernel for Hopper
+(csrc/strided_resample.cu), replacing the TPU kernel
+tempestsdr_tpu/pallas/strided_kernel.py `_kernel` (box_resample_strided_pallas).
+
+Same contract as ops.resample.box_resample_strided, its plain version:
+(x_ext f32[taps + n], phase_fix i64, inv_fix i64) -> (pixels f32[max_pix],
+n_out i32, new_phase i64). The kernel computes the exact int64 carries (as
+resample_counts does) and the chunk bases itself, from device scalars: one
+launch per block, no host round trip.
+
+The tap loop covers the whole PLL headroom (config.PLL_HEADROOM_FRAC, which
+framerate_pll and the refresh nudge clamp to), so the kernel serves every
+block the step can produce and has no fallback branch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..config import PLL_HEADROOM_FRAC
+from ..ops.resample import box_resample_strided, plan_strided
+
+TILE = 1024  # samples per thread block; must equal kTile in the .cu source
+
+
+def k1_margin(inv_nominal: float, tile: int = TILE):
+    """(margin, taps_eff) of K1's tap loop: the drift of the pixel ramp
+    against the sample grid over one tile, at the worst rate the PLL
+    headroom allows, plus one sample of slack."""
+    pll = PLL_HEADROOM_FRAC / (1.0 - PLL_HEADROOM_FRAC)
+    drift = abs(2.0 * inv_nominal - 1.0) + 2.0 * inv_nominal * pll
+    margin = int(math.ceil(tile * drift)) + 1
+    return margin, 2 * margin + 4
+
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from .build import load
+
+        lib = load("strided_resample")
+        lib.tsdr_strided_resample.restype = ctypes.c_int
+        lib.tsdr_strided_resample.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.tsdr_strided_resample_tile.restype = ctypes.c_int
+        if lib.tsdr_strided_resample_tile() != TILE:
+            raise RuntimeError("strided_resample.cu tile differs from TILE")
+        _LIB = lib
+    return _LIB
+
+
+def box_resample_strided_cuda(x_ext, phase_fix, inv_fix, *, n_samples: int, max_pix: int,
+                              taps: int, inv_nominal: float):
+    """K1 on CUDA tensors; the plain version on CPU tensors."""
+    if x_ext.device.type == "cpu":
+        return box_resample_strided(x_ext, phase_fix, inv_fix, n_samples=n_samples,
+                                    max_pix=max_pix, taps=taps, inv_nominal=inv_nominal)
+    if x_ext.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {x_ext.device}")
+    plan = plan_strided(inv_nominal, taps)
+    if plan is None or plan[0] != 2:
+        raise ValueError("K1 requires the m == 2 geometry")
+    if x_ext.dtype != torch.float32 or x_ext.dim() != 1 or not x_ext.is_contiguous():
+        raise ValueError("x_ext must be a contiguous 1-D float32 tensor")
+    if x_ext.shape[0] != taps + n_samples:
+        raise ValueError(f"x_ext has {x_ext.shape[0]} samples, expected {taps + n_samples}")
+    for name, t in (("phase_fix", phase_fix), ("inv_fix", inv_fix)):
+        if t.dtype != torch.int64 or t.dim() != 0 or t.device != x_ext.device:
+            raise ValueError(f"{name} must be a 0-d int64 tensor on {x_ext.device}")
+    if max_pix <= 0:
+        raise ValueError("max_pix must be positive")
+    margin, taps_eff = k1_margin(inv_nominal)
+    phase_fix = phase_fix.contiguous()
+    inv_fix = inv_fix.contiguous()
+    dev = x_ext.device
+    out = torch.empty((max_pix,), dtype=torch.float32, device=dev)
+    n_out = torch.empty((), dtype=torch.int32, device=dev)
+    new_phase = torch.empty((), dtype=torch.int64, device=dev)
+    err = _lib().tsdr_strided_resample(
+        x_ext.data_ptr(), x_ext.shape[0], phase_fix.data_ptr(), inv_fix.data_ptr(),
+        n_samples, out.data_ptr(), n_out.data_ptr(), new_phase.data_ptr(), max_pix,
+        taps, margin, taps_eff, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: cudaError_t {err}")
+    box_resample_strided_cuda.launches += 1
+    return out, n_out, new_phase
+
+
+box_resample_strided_cuda.launches = 0

@@ -1,0 +1,136 @@
+"""Fractional box resampling, samplerate -> pixelrate: the plain PyTorch
+counterpart of tempestsdr_tpu.ops.resample for the strided (m pixels per
+sample) form.
+
+Each output pixel is the integral of the piecewise-constant envelope over
+the pixel's window [a_p, a_p + inv), a_p = phase + p*inv, times the rate
+(the reference's dsp_resample_process, TempestSDR/src/dsp.c:256-307). The
+phase is an exact int64 fixed-point carry (FRAC_BITS fractional bits): the
+carries n_out and new_phase are exact integers, with floor `//` and an
+arithmetic `>>` on negative values as in the JAX package.
+
+box_resample_strided is the plain version of kernel K1
+(kernels/strided_resample.py): the same function the JAX step runs off the
+TPU and the one K1 is held against on the card. It keeps the JAX form's
+G-aligned windows and its float operation order so the two agree to the
+last bit on the CPU; only the TPU interleave matmul became an index
+reshape.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import FRAC_BITS, PLL_HEADROOM_FRAC
+
+_INV_SCALE = 2.0 ** (-FRAC_BITS)  # exact in f32
+
+
+def _f32(v: float, device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def resample_counts(phase_fix: torch.Tensor, inv_fix: torch.Tensor, n_samples: int):
+    """Pixels completed this block and the next-block phase: (n_out i32,
+    new_phase_fix i64), exact integer math. A far-positive phase (a
+    drop-compensation skip draining) clamps n_out to 0."""
+    size_fix = int(n_samples) << FRAC_BITS
+    n_out64 = torch.clamp((size_fix - phase_fix) // inv_fix, min=0)
+    new_phase = phase_fix + n_out64 * inv_fix - size_fix
+    return n_out64.to(torch.int32), new_phase
+
+
+def plan_strided(inv_nominal: float, taps: int, *, L: int | None = None,
+                 pll_frac: float | None = None, max_drift: float = 6.0):
+    """Feasibility plan of the strided form: (m, taps_eff, L, margin), or
+    None when the geometry does not fit (downsampling, or too much drift).
+    m = round(1/inv) pixels advance ~one sample; taps_eff covers the drift
+    over a chunk of L samples, PLL excursions up to pll_frac included."""
+    if pll_frac is None:
+        pll_frac = PLL_HEADROOM_FRAC  # framerate_pll clamps delta to this
+    if inv_nominal <= 0 or inv_nominal > 1.0:
+        return None
+    m = max(int(round(1.0 / inv_nominal)), 1)
+    delta = m * inv_nominal - 1.0
+    delta_cap = abs(delta) + m * inv_nominal * pll_frac
+    if L is None:
+        L = int(min(max(max_drift / max(delta_cap, 1e-9), 256), 8192))
+        L = 1 << (L.bit_length() - 1)  # floor pow2
+    drift = L * delta_cap
+    if drift > max_drift or L < 256:
+        return None
+    margin = int(np.ceil(drift))
+    taps_eff = taps + 1 + 2 * margin
+    return m, taps_eff, L, margin
+
+
+def box_resample_strided(x_ext, phase_fix, inv_fix, *, n_samples: int, max_pix: int,
+                         taps: int, inv_nominal: float, L: int | None = None, G: int = 8):
+    """Resample one block for a near-rational upsampling geometry.
+
+    x_ext: f32[taps + n_samples] — the previous block's last `taps` envelope
+        samples, then this block's.
+    phase_fix, inv_fix: 0-d int64 tensors (fixed-point window start of the
+        next pixel relative to this block's first sample; samples per pixel).
+    Returns (pixels f32[max_pix], n_out i32, new_phase i64); pixels past
+    n_out are zero.
+    """
+    plan = plan_strided(inv_nominal, taps, L=L)
+    if plan is None:
+        raise ValueError("geometry unsuitable for the strided form")
+    n_out, new_phase = resample_counts(phase_fix, inv_fix, n_samples)
+    pixels = _strided_pixels(x_ext, phase_fix, inv_fix, n_out, plan=plan,
+                             max_pix=max_pix, taps=taps, G=G)
+    return pixels, n_out, new_phase
+
+
+def _strided_pixels(x_ext, phase_fix, inv_fix, n_valid, *, plan, max_pix: int,
+                    taps: int, G: int):
+    """Pixel p = (c*L + q)*m + b: each chunk c gathers one G-aligned window,
+    and pixel (c, b, q)'s window start lies within a small static tap range
+    of window sample q, so the gather becomes taps_eff + G static shifted
+    slices with exact overlap weights from an f32 residual ramp."""
+    m, taps_eff, L, margin = plan
+    dev = x_ext.device
+    inv_f = inv_fix.to(torch.float32) * _INV_SCALE
+    rate_f = _f32(float(1 << FRAC_BITS), dev) / inv_fix.to(torch.float32)
+    # drift per q from the exact fixed-point difference
+    delta_f = (m * inv_fix - (1 << FRAC_BITS)).to(torch.float32) * _INV_SCALE
+
+    pix_per_chunk = m * L
+    n_chunks = -(-max_pix // pix_per_chunk)
+    w = L + taps_eff + 2
+    w_rows = -(-(w + G - 1) // G) + 1
+    w_pad = w_rows * G
+    zeros = lambda k: torch.zeros((k,), dtype=x_ext.dtype, device=dev)  # noqa: E731
+    x_pad = torch.cat([zeros(margin), x_ext, zeros(w_pad)])
+
+    c = torch.arange(n_chunks, dtype=torch.int64, device=dev)
+    base = phase_fix + (c * pix_per_chunk) * inv_fix
+    start = (base >> FRAC_BITS).to(torch.int32)
+    frac = (base - (start.to(torch.int64) << FRAC_BITS)).to(torch.float32) * _INV_SCALE + _f32(
+        float(margin), dev)
+    n_rows = -(-x_pad.shape[0] // G)
+    x2 = torch.cat([x_pad, zeros(n_rows * G - x_pad.shape[0])]).reshape(n_rows, G)
+    target = torch.clamp(start + taps, 0, x_pad.shape[0] - w)
+    frac = frac + (start + taps - target).to(torch.float32)
+    row0 = torch.clamp(torch.div(target, G, rounding_mode="floor"), 0, n_rows - w_rows)
+    rows = row0.to(torch.int64)[:, None] + torch.arange(w_rows, device=dev)[None, :]
+    win = x2[rows].reshape(n_chunks, w_pad)
+    misalign = (target - row0 * G).to(torch.float32)
+
+    q = torch.arange(L, dtype=torch.float32, device=dev)
+    b = torch.arange(m, dtype=torch.float32, device=dev)
+    rel = (frac + misalign)[:, None, None] + b[None, :, None] * inv_f + q[None, None, :] * delta_f
+    acc = torch.zeros((n_chunks, m, L), dtype=torch.float32, device=dev)
+    for t in range(taps_eff + G):  # + G absorbs the row misalignment
+        lo = torch.clamp(rel, min=float(t))
+        hi = torch.clamp(rel + inv_f, max=float(t + 1))
+        wt = torch.clamp(hi - lo, min=0.0)
+        acc = acc + wt * win[:, t:t + L][:, None, :]
+
+    # (c, b, q) -> pixel order p = c*L*m + q*m + b
+    pixels = acc.transpose(1, 2).reshape(-1)[:max_pix] * rate_f
+    valid = torch.arange(max_pix, dtype=torch.int32, device=dev) < n_valid
+    return torch.where(valid, pixels, torch.zeros_like(pixels))

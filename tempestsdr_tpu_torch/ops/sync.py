@@ -1,0 +1,157 @@
+"""Blanking-strip sync detection and the frame-rate PLL
+(TempestSDR/src/syncdetector.c), the counterpart of tempestsdr_tpu.ops.sync.
+
+find_best_fit <- findbestfit (:26-58) with the reference's id-lags-window-
+by-one quirk; find_the_sweet_spot <- findthesweetspot (:71-119): blur, probe
+strip sizes {curr, curr-4, curr+4, curr/2, curr*2}, first-wins argmax, IIR
+centre tracking with wraparound (round half to even, as torch.round does);
+framerate_pll <- frameratepll (:133-153) with a clamp to the static PLL
+headroom. Profile math follows the profile's dtype: f64 by default, f32
+under Params.fast_sync.
+
+Everything stays on the profile's device: the per-candidate window sums are
+one gather of the doubled cumsum at device-side offsets, so the search needs
+no host round trip.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .gaussian import gaussian_blur_circular
+
+FRAMERATE_DX_LOWPASS_COEFF_HEIGHT = 0.1  # syncdetector.c:15
+FRAMERATE_DX_LOWPASS_COEFF_WIDTH = 0.9  # syncdetector.c:16
+FRAMERATE_PLL_SPEED_HI = 1e-5  # syncdetector.c:18
+FRAMERATE_PLL_SPEED_LO = 1e-6  # syncdetector.c:19
+FRAMERATE_PLL_LOCKED_VALUE = 0.5  # syncdetector.c:20
+
+
+class SweetspotState(NamedTuple):
+    """Per-axis detector carry (syncdetector.h sweetspot_data_t), all i32."""
+
+    stripsize: torch.Tensor
+    dx: torch.Tensor
+    vx: torch.Tensor
+
+    @staticmethod
+    def init(device="cpu") -> "SweetspotState":
+        return SweetspotState(*(torch.zeros((), dtype=torch.int32, device=device)
+                                for _ in range(3)))
+
+
+class PLLState(NamedTuple):
+    """Frame-rate PLL carry (syncdetector.h syncdetector_t)."""
+
+    avg_speed: torch.Tensor  # f64
+    locked: torch.Tensor  # bool
+    refresh_delta: torch.Tensor  # f32 — offset vs nominal refreshrate
+
+    @staticmethod
+    def init(device="cpu") -> "PLLState":
+        return PLLState(
+            torch.zeros((), dtype=torch.float64, device=device),
+            torch.zeros((), dtype=torch.bool, device=device),
+            torch.zeros((), dtype=torch.float32, device=device),
+        )
+
+
+def _doubled_cumsum(data: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros((1,), dtype=data.dtype, device=data.device)
+    return torch.cat([zero, torch.cumsum(torch.cat([data, data]), 0)])
+
+
+def find_best_fit(data: torch.Tensor, totalsum, stripsize):
+    """Best circular strip of width `stripsize` (syncdetector.c:26-58).
+    Returns (bestfit, bestid i32); the winning window start j maps to id
+    max(j-1, 0) like the reference."""
+    n = data.shape[0]
+    csum = _doubled_cumsum(data)
+    s = int(stripsize)
+    w = csum[s:s + n] - csum[:n]
+    m = (totalsum - w) / (float(n) - s) - w / s
+    m = m * m
+    j = torch.argmax(m).to(torch.int32)
+    return m.max(), torch.clamp(j - 1, min=0)
+
+
+def _candidate_sizes(state: SweetspotState, n: int, minsize: int):
+    """Probe set {curr, curr-4, curr+4, curr>>1, curr<<1} in probe order
+    (syncdetector.c:88-93): (safe sizes i32[5], valid bool[5])."""
+    minsize = max(int(minsize), 1)
+    size2 = n >> 1
+    curr = torch.clamp(state.stripsize, minsize, size2)
+    cand = torch.stack([curr, curr - 4, curr + 4, curr >> 1, curr << 1]).to(torch.int32)
+    valid = (cand >= minsize) & (cand < size2) & (cand != curr)
+    valid[0] = True  # base size always evaluated
+    safe = torch.where(valid, cand, curr)
+    return safe, valid
+
+
+def _iir_track(state: SweetspotState, beststripsize, beststripstart, n: int,
+               lowpasscoeff: float, dt=torch.float64) -> SweetspotState:
+    """IIR strip-centre tracking with wraparound + wrap-corrected velocity
+    (syncdetector.c:101-118)."""
+    h2 = n // 2
+    dxnl = torch.remainder(beststripstart + torch.div(beststripsize, 2, rounding_mode="floor"), n)
+    rawdiff = dxnl - state.dx
+    dx0 = torch.where(rawdiff > h2, state.dx + n, state.dx)
+    dxnl = torch.where(rawdiff < -h2, dxnl + n, dxnl)
+    lastx = dx0
+    c = torch.tensor(lowpasscoeff, dtype=dt, device=dxnl.device)
+    one = torch.tensor(1.0, dtype=dt, device=dxnl.device)
+    dx1 = torch.remainder(
+        torch.round(dxnl.to(dt) * c + (one - c) * dx0.to(dt)).to(torch.int64), n
+    ).to(torch.int32)
+    rawvx = dx1 - lastx
+    vx = torch.where(
+        rawvx > h2, n - rawvx, torch.where(rawvx < -h2, -n - rawvx, rawvx)
+    ).to(torch.int32)
+    return SweetspotState(beststripsize.to(torch.int32), dx1, vx)
+
+
+def find_the_sweet_spot(state: SweetspotState, data: torch.Tensor, minsize: int,
+                        lowpasscoeff: float):
+    """One detection round on a collapsed profile (syncdetector.c:71-119).
+    Returns (state', blurred_profile, strip_start i32)."""
+    n = data.shape[0]
+    data = gaussian_blur_circular(data)
+    totalsum = data.sum()
+    safe, valid = _candidate_sizes(state, n, minsize)
+
+    dt = data.dtype
+    csum = _doubled_cumsum(data)
+    lo = csum[:n]
+    idx = safe.to(torch.int64)[:, None] + torch.arange(n, device=data.device)[None, :]
+    w = csum[idx] - lo[None, :]
+    s = safe.to(dt)[:, None]
+    m = (totalsum - w) / (torch.tensor(float(n), dtype=dt, device=data.device) - s) - w / s
+    m = m * m
+    j = torch.argmax(m, dim=1).to(torch.int32)  # first maximum: first-wins
+    neg_inf = torch.full((5,), float("-inf"), dtype=dt, device=data.device)
+    fits = torch.where(valid, m.max(dim=1).values, neg_inf)
+    ids = torch.clamp(j - 1, min=0)  # the reference's id-off-by-one (:46-56)
+    win = torch.argmax(fits)
+    beststripstart = ids[win]
+    beststripsize = safe[win]
+    state = _iir_track(state, beststripsize, beststripstart, n, lowpasscoeff, dt=dt)
+    return state, data, beststripstart
+
+
+def framerate_pll(pll: PLLState, vx, *, enabled: bool, max_delta: float | None = None) -> PLLState:
+    """PLL update from the horizontal-axis velocity (syncdetector.c:133-153),
+    with |refresh_delta| clamped to the static headroom max_delta (Hz)."""
+    vx64 = vx.to(torch.float64)
+    avg = pll.avg_speed * 0.99 + 0.01 * vx64
+    locked = (avg < FRAMERATE_PLL_LOCKED_VALUE) & (avg > -FRAMERATE_PLL_LOCKED_VALUE)
+    if not enabled:
+        return PLLState(avg, locked, pll.refresh_delta)
+    diff = torch.where(locked, avg * FRAMERATE_PLL_SPEED_LO, vx64 * FRAMERATE_PLL_SPEED_HI)
+    diff = torch.where(vx == 0, torch.zeros_like(diff), diff)
+    delta = pll.refresh_delta - diff.to(torch.float32)
+    if max_delta is not None:
+        lim = float(torch.tensor(max_delta, dtype=torch.float32))
+        delta = torch.clamp(delta, -lim, lim)
+    return PLLState(avg, locked, delta)
