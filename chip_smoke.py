@@ -7,13 +7,19 @@
 2. builds every CUDA kernel of the port from tempestsdr_tpu_torch/csrc
    (one nvcc per source, started together) and holds each against its
    plain PyTorch version on the card, at the shapes the streaming step
-   gives it at the 64 MS/s and 8 MS/s geometries;
+   gives it at the 64 MS/s and 8 MS/s geometries, over three streamed
+   blocks at three rates: K1 (strided), K2 and K2' (fused decode + demod +
+   resample, uint8 and int8), K3 and K4 (chunked);
 3. times each kernel (CUDA events, L2 flushed before each launch) beside
-   its plain version and its memory/compute bound;
-4. runs Session.run end to end on a synthetic uint8 source at 64 MS/s
-   (K == 1) and 8 MS/s (K == 4) and checks frames, autocorrelation plots
-   and that every block launched the kernels;
-5. prints a JSON line of per-kernel numbers, then, as the last line,
+   its plain version and its memory/compute bound, K2 and K2' in turns;
+4. runs Session.run end to end on a synthetic uint8 source: the default
+   path at 64 MS/s (K == 1) and 8 MS/s (K == 4), and resampler="fused",
+   "pallas" and "pallas_windows" at 64 MS/s, checking frames,
+   autocorrelation plots and one launch of the path's kernel per block; K2'
+   streams the same blocks through its function entry;
+5. cross-checks the card's step against the CPU step at 8 MS/s for six
+   configurations, and profiles steady default blocks;
+6. prints a JSON line of per-kernel numbers, then, as the last line,
    {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 2
@@ -35,11 +41,25 @@ if not torch.cuda.is_available():
 from tempestsdr_tpu_torch import kernels  # noqa: E402
 from tempestsdr_tpu_torch.config import PipelineConfig  # noqa: E402
 from tempestsdr_tpu_torch.kernels import build  # noqa: E402
+from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
+    box_resample_pallas_cuda,
+    box_resample_pallas_windows_cuda,
+    gather_windows,
+    windows_resample_launch,
+)
+from tempestsdr_tpu_torch.kernels.fused_demod_resample import (  # noqa: E402
+    fused_demod_resample,
+    fused_demod_resample_cuda,
+    fused_demod_resample_u16_cuda,
+)
 from tempestsdr_tpu_torch.kernels.strided_resample import (  # noqa: E402
     box_resample_strided_cuda,
     k1_margin,
 )
-from tempestsdr_tpu_torch.ops.resample import box_resample_strided  # noqa: E402
+from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
+    box_resample_block_chunked,
+    box_resample_strided,
+)
 from tempestsdr_tpu_torch.params import Params  # noqa: E402
 from tempestsdr_tpu_torch.sources.base import Source, SourceBlock  # noqa: E402
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
@@ -52,7 +72,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores, published
 K1_TOL = 2e-5  # K1's rel ramp is the TPU kernel's (margin+frac)+s*(2inv-1),
 # the plain form's the XLA form's chunk ramp: f32 rounding of the window
-# edges differs by ~1e-6 of a sample (4.7e-6 max seen on [0, 1) inputs)
+# edges differs by ~1e-6 of a sample (4.7e-6 max seen on [0, 1) inputs).
+# K2's pixels are K1's, so the same; its envelope is held exact.
+K3_TOL = 3e-4  # K3/K4 against the chunked form (tests/test_pallas.py:99):
+# their f32 ramps start at each 256-pixel tile, the chunked form's at each
+# 128-pixel chunk's aligned window
+STEP_TOL = {  # the card's step against the CPU step, frames max abs diff
+    "default": 1e-4, "fused": 1e-4, "nearest_neighbour": 1e-4,  # K1-class pixels
+    "pallas": 2e-3, "pallas_windows": 2e-3, "fir31+pallas": 2e-3,  # K3-class pixels;
+    # 2e-3 is the JAX package's kernel-vs-XLA step tolerance (tests/test_stream.py:91)
+}
 CORR_MIN = 0.9  # first frame vs the box-resampled raster (noise 0.02, u8):
 # the first frame is folded before the PLL first moves the rate, so it must
 # reproduce the raster (0.94 seen); later frames follow the PLL's walk
@@ -76,41 +105,66 @@ def card():
     return out
 
 
-def k1_inputs(cfg, rng, scale):
-    """Three streamed blocks of envelope-like data at one rate scale."""
-    n, taps = cfg.block_samples, cfg.resample_taps
-    inv = torch.tensor(round(cfg.samples_per_pixel * scale * (1 << 40)), device=DEV)
-    blocks = [torch.from_numpy(rng.random(n, dtype=np.float32) * 1.5).to(DEV)
-              for _ in range(3)]
-    return inv, blocks
+def rate_inv(cfg, scale):
+    return torch.tensor(round(cfg.samples_per_pixel * scale * (1 << 40)), device=DEV)
 
 
-def k1_call(fn, cfg, x, phase, inv):
-    return fn(x, phase, inv, n_samples=cfg.block_samples, max_pix=cfg.max_block_pixels,
+def call(fn, cfg, *args):
+    return fn(*args, n_samples=cfg.block_samples, max_pix=cfg.max_block_pixels,
               taps=cfg.resample_taps, inv_nominal=cfg.samples_per_pixel)
 
 
-def check_k1(cfg):
-    """K1 against the plain strided form: n_out and phase exact, pixels
-    within K1_TOL, over 3 blocks at rate scales 1, 1.001, 1/1.001."""
+def raw_block(cfg, rng, dtype=torch.uint8):
+    raw = torch.from_numpy(rng.integers(0, 256, size=2 * cfg.block_samples, dtype=np.uint8))
+    return raw.view(dtype).to(DEV)
+
+
+def check_kernels(cfg):
+    """Every kernel against its plain version over three streamed blocks at
+    rate scales 1, 1.001 and 1/1.001: carries exact; K1 and K2/K2' pixels
+    within K1_TOL and K2's envelope exact; K3 and K4 within K3_TOL of the
+    chunked form. Each plain version's carries feed the next block.
+    Returns the max abs pixel error per kernel."""
     rng = np.random.default_rng(7)
     taps = cfg.resample_taps
-    worst = 0.0
+    errs = dict.fromkeys(("K1", "K2", "K2'", "K3", "K4"), 0.0)
+
+    def held(name, got, want, tol):
+        (a, na, pa), (b, nb, pb) = got, want
+        torch.cuda.synchronize()
+        assert int(na) == int(nb) and int(pa) == int(pb), (name, int(na), int(nb))
+        err = (a - b).abs().max().item()
+        assert err <= tol, f"{name} differs from its plain version by {err}"
+        errs[name] = max(errs[name], err)
+
     for scale in (1.0, 1.001, 1 / 1.001):
-        inv, blocks = k1_inputs(cfg, rng, scale)
+        inv = rate_inv(cfg, scale)
         phase = torch.zeros((), dtype=torch.int64, device=DEV)
         tail = torch.zeros(taps, device=DEV)
-        for env in blocks:
-            x = torch.cat([tail, env])
-            a, na, pa = k1_call(box_resample_strided, cfg, x, phase, inv)
-            b, nb, pb = k1_call(box_resample_strided_cuda, cfg, x, phase, inv)
-            torch.cuda.synchronize()
-            assert int(na) == int(nb) and int(pa) == int(pb), (scale, int(na), int(nb))
-            err = (a - b).abs().max().item()
-            assert err <= K1_TOL, f"K1 differs from its plain version by {err}"
-            worst = max(worst, err)
-            phase, tail = pa, x[-taps:]
-    return worst
+        for _ in range(3):
+            x = torch.cat([tail, torch.from_numpy(rng.random(cfg.block_samples, dtype=np.float32)
+                                                  * 1.5).to(DEV)])
+            strided = call(box_resample_strided, cfg, x, phase, inv)
+            held("K1", call(box_resample_strided_cuda, cfg, x, phase, inv), strided, K1_TOL)
+            chunked = call(box_resample_block_chunked, cfg, x, phase, inv)
+            held("K3", call(box_resample_pallas_cuda, cfg, x, phase, inv), chunked, K3_TOL)
+            held("K4", call(box_resample_pallas_windows_cuda, cfg, x, phase, inv), chunked,
+                 K3_TOL)
+            del chunked
+            phase, tail = strided[2], x[-taps:]
+        for dtype in (torch.uint8, torch.int8):
+            phase = torch.zeros((), dtype=torch.int64, device=DEV)
+            tail = torch.zeros(taps, device=DEV)
+            for _ in range(3):
+                raw = raw_block(cfg, rng, dtype)
+                env, *plain = call(fused_demod_resample, cfg, raw, tail, phase, inv)
+                for name, fn in (("K2", fused_demod_resample_cuda),
+                                 ("K2'", fused_demod_resample_u16_cuda)):
+                    got_env, *got = call(fn, cfg, raw, tail, phase, inv)
+                    held(name, got, plain, K1_TOL)
+                    assert torch.equal(got_env, env), f"{name}: envelope not bit-exact"
+                phase, tail = plain[2], env[-taps:]
+    return errs
 
 
 def time_launches(fn, reps=30):
@@ -132,23 +186,65 @@ def time_launches(fn, reps=30):
     return float(np.median(times[3:]))
 
 
-def measure_k1(cfg):
-    n, mp = cfg.block_samples, cfg.max_block_pixels
-    rng = np.random.default_rng(8)
-    inv, blocks = k1_inputs(cfg, rng, 1.0)
-    x = torch.cat([torch.zeros(cfg.resample_taps, device=DEV), blocks[0]])
-    phase = torch.zeros((), dtype=torch.int64, device=DEV)
-    ms = time_launches(lambda: k1_call(box_resample_strided_cuda, cfg, x, phase, inv))
-    plain_ms = time_launches(lambda: k1_call(box_resample_strided, cfg, x, phase, inv))
-    # each input read once, each output written once
-    nbytes = (n + cfg.resample_taps) * 4 + mp * 4 + 2 * 8 + 8 + 4
-    # the box filter's own work: per pixel, overlap weights (min, max,
-    # sub, max) and a multiply-add over the resample_taps samples it spans
-    flops = mp * cfg.resample_taps * 6 + mp
+def bound(nbytes, flops):
+    """The least time for the work: bytes at the memory rate or f32
+    operations at the f32 rate, whichever is longer."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, margin_taps=k1_margin(cfg.samples_per_pixel))
+    return dict(bound_ms=max(t_bytes, t_ops), bytes=nbytes, flops=flops,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def measure_kernels(cfg):
+    """Each kernel's device time beside its plain version's and its bound,
+    at the step's shapes on one block of this geometry. K2 and K2' are
+    timed in turns (K2, K2', K2', K2) for their A/B. Counts per block: each
+    input read once, each output written once (carries: 2 int64 in, int32 +
+    int64 out); operations: the box filter's per-pixel overlap weights
+    (min, max, sub, max) and multiply-add over the resample_taps samples a
+    pixel spans, plus a multiply by the rate; the demod's 2 subtractions,
+    2 squares, add, sqrt and scale per sample."""
+    n, mp, taps = cfg.block_samples, cfg.max_block_pixels, cfg.resample_taps
+    rng = np.random.default_rng(8)
+    inv = rate_inv(cfg, 1.0)
+    phase = torch.zeros((), dtype=torch.int64, device=DEV)
+    x = torch.cat([torch.zeros(taps, device=DEV),
+                   torch.from_numpy(rng.random(n, dtype=np.float32) * 1.5).to(DEV)])
+    raw = raw_block(cfg, rng)
+    tail = torch.zeros(taps, device=DEV)
+    windows, fracs = gather_windows(x, phase, inv, max_pix=mp, taps=taps,
+                                    inv_nominal=cfg.samples_per_pixel)
+    carries = 2 * 8 + 4 + 8
+    resample_flops = mp * taps * 6 + mp
+    out = {}
+
+    k2 = lambda: call(fused_demod_resample_cuda, cfg, raw, tail, phase, inv)  # noqa: E731
+    k2p = lambda: call(fused_demod_resample_u16_cuda, cfg, raw, tail, phase, inv)  # noqa: E731
+    ab = [time_launches(f) for f in (k2, k2p, k2p, k2)]
+    fused_bound = bound(2 * n + 4 * taps + 4 * n + 4 * mp + carries, 7 * n + resample_flops)
+    fused_plain = time_launches(lambda: call(fused_demod_resample, cfg, raw, tail, phase, inv))
+    out["K2"] = dict(ms=min(ab[0], ab[3]), ms_turns=[ab[0], ab[3]], plain_ms=fused_plain,
+                     **fused_bound)
+    out["K2'"] = dict(ms=min(ab[1], ab[2]), ms_turns=[ab[1], ab[2]], plain_ms=fused_plain,
+                      **fused_bound)
+
+    resample_bound = bound(4 * (n + taps) + 4 * mp + carries, resample_flops)
+    out["K1"] = dict(
+        ms=time_launches(lambda: call(box_resample_strided_cuda, cfg, x, phase, inv)),
+        plain_ms=time_launches(lambda: call(box_resample_strided, cfg, x, phase, inv)),
+        margin_taps=k1_margin(cfg.samples_per_pixel), **resample_bound)
+    chunked_plain = time_launches(lambda: call(box_resample_block_chunked, cfg, x, phase, inv),
+                                  reps=10)
+    out["K3"] = dict(
+        ms=time_launches(lambda: call(box_resample_pallas_cuda, cfg, x, phase, inv)),
+        plain_ms=chunked_plain, **resample_bound)
+    out["K4"] = dict(
+        ms=time_launches(lambda: windows_resample_launch(windows, fracs, phase, inv,
+                                                         n_samples=n, max_pix=mp)),
+        wrapper_ms=time_launches(
+            lambda: call(box_resample_pallas_windows_cuda, cfg, x, phase, inv)),
+        plain_ms=chunked_plain, windows_shape=list(windows.shape),
+        **bound(4 * windows.numel() + 4 * fracs.numel() + 4 * mp + carries, resample_flops))
+    return out
 
 
 class ReplayU8(Source):
@@ -191,21 +287,22 @@ def expected_frame(cfg, raster):
     return raster.reshape(-1)[disp].reshape(cfg.height, cfg.width)
 
 
-def warm_up(cfg, raster):
+def warm_up(cfg, raster, params):
     """A short session that reaches a frame emit and an autocorrelation
     round, so cuFFT plans and the allocator's pools exist before timing."""
     n = -(-cfg.ac_round_samples // cfg.block_samples) + 1
-    Session(cfg, Params(), ReplayU8(cfg, raster, n), device=DEV).run(max_blocks=n)
+    Session(cfg, params, ReplayU8(cfg, raster, n), device=DEV).run(max_blocks=n)
 
 
-def run_session(name, cfg, n_blocks):
+def run_session(name, cfg, n_blocks, params=Params(), kernel="box_resample_strided_cuda"):
     """One Session.run over n_blocks after a warm-up session. Launch counts
-    are zeroed just before the timed run and read just after."""
+    are zeroed just before the timed run and read just after: `kernel`
+    must have launched once per block and no other kernel at all."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
-    warm_up(cfg, raster)
+    warm_up(cfg, raster, params)
     src = ReplayU8(cfg, raster, n_blocks)
     frames, plots = [], []
-    sess = Session(cfg, Params(), src,
+    sess = Session(cfg, params, src,
                    SessionCallbacks(on_frame=frames.append, on_plot=plots.append), device=DEV)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -219,35 +316,81 @@ def run_session(name, cfg, n_blocks):
     cc = float(np.corrcoef(frames[0].ravel(), expected_frame(cfg, raster).ravel())[0, 1])
     assert cc > CORR_MIN, f"{name}: frame correlation {cc}"
     assert plots, f"{name}: no autocorrelation plots"
-    assert launches["box_resample_strided_cuda"] == n_blocks, launches
-    per_block_ms = dt / n_blocks * 1e3
-    row = dict(geometry=name, blocks=n_blocks, frames=len(frames), plots=len(plots),
-               corr=cc, per_block_ms=per_block_ms,
+    assert launches == {k: n_blocks if k == kernel else 0 for k in launches}, (name, launches)
+    row = dict(path=name, resampler=params.resampler, blocks=n_blocks, frames=len(frames),
+               plots=len(plots), corr=cc, per_block_ms=dt / n_blocks * 1e3,
                msps=cfg.block_samples * n_blocks / dt / 1e6, launches=launches)
     print("e2e " + json.dumps(row))
     return row
 
 
-def check_against_cpu(cfg, n_blocks=4):
-    """The step on the card (K1) against the same step on the CPU (plain
-    versions) over the same u8 blocks: pixel counts, emit and round flags,
-    the phase and the sync positions exact; frames within 1e-4 (K1 and the
-    plain form differ by ~1e-6 in pixels)."""
+def stream_k2_u16(cfg, n_blocks):
+    """K2' through its function entry, the way the TPU package's probe is
+    used: n_blocks of the session's uint8 stream, tail and phase carried.
+    Counts are zeroed just before and read just after; the envelope and
+    pixels are held against K2's on the same blocks."""
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    blocks = [torch.from_numpy(b).to(DEV) for b in ReplayU8(cfg, raster, n_blocks).blocks]
+    inv = rate_inv(cfg, 1.0)
+    phase = torch.zeros((), dtype=torch.int64, device=DEV)
+    tail = torch.zeros(cfg.resample_taps, device=DEV)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = []
+    for raw in blocks:
+        env, px, n_out, phase = call(fused_demod_resample_u16_cuda, cfg, raw, tail, phase, inv)
+        tail = env[-cfg.resample_taps:]
+        outs.append((env, px))
+    torch.cuda.synchronize()
+    launches = fused_demod_resample_u16_cuda.launches
+    assert launches == n_blocks and all(
+        fn.launches == 0 for fn in kernels.WRAPPERS if fn is not fused_demod_resample_u16_cuda)
+    phase = torch.zeros((), dtype=torch.int64, device=DEV)
+    tail = torch.zeros(cfg.resample_taps, device=DEV)
+    for raw, (env_u16, px_u16) in zip(blocks, outs):
+        env, px, _, phase = call(fused_demod_resample_cuda, cfg, raw, tail, phase, inv)
+        assert torch.equal(env, env_u16) and torch.equal(px, px_u16)
+        tail = env[-cfg.resample_taps:]
+    print(f"K2' streamed {n_blocks} blocks through its function entry: {launches} launches, "
+          "envelope and pixels equal to K2's")
+    return launches
+
+
+CPU_CHECKS = {
+    "default": Params(),
+    "fused": Params(resampler="fused"),
+    "pallas": Params(resampler="pallas"),
+    "pallas_windows": Params(resampler="pallas_windows"),
+    "fir31+pallas": Params(resampler="pallas", fir_lowpass_taps=31),
+    "nearest_neighbour": Params(nearest_neighbour=True),
+}
+
+
+def check_against_cpu(cfg, n_blocks=3):
+    """The step on the card (kernels) against the same step on the CPU
+    (plain versions) over the same u8 blocks, for each CPU_CHECKS
+    configuration: pixel counts, emit and round flags, the phase and the
+    sync positions exact; frames within STEP_TOL. Returns the worst frame
+    difference of each."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     src = ReplayU8(cfg, raster, n_blocks)
-    steps = {d: make_step(cfg, Params(), device=d) for d in ("cuda", "cpu")}
-    states = {d: init_state(cfg, device=d) for d in steps}
-    worst = 0.0
-    for b, raw in enumerate(src.blocks):
-        outs = {}
-        for d, step in steps.items():
-            states[d], outs[d] = step(states[d], torch.from_numpy(raw), StepControls())
-        g, c = outs["cuda"], outs["cpu"]
-        for f in ("n_pixels", "frame_valid", "ac_plot_valid", "sync_dx", "sync_dy", "ac_calls"):
-            assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), (b, f)
-        assert int(states["cuda"].phase_fix) == int(states["cpu"].phase_fix), b
-        worst = max(worst, (g.frame.cpu() - c.frame).abs().max().item())
-    assert worst < 1e-4, worst
+    worst = {}
+    for name, params in CPU_CHECKS.items():
+        steps = {d: make_step(cfg, params, device=d) for d in ("cuda", "cpu")}
+        states = {d: init_state(cfg, params.fir_lowpass_taps, device=d) for d in steps}
+        worst[name] = 0.0
+        for b, raw in enumerate(src.blocks):
+            outs = {}
+            for d, step in steps.items():
+                states[d], outs[d] = step(states[d], torch.from_numpy(raw), StepControls())
+            g, c = outs["cuda"], outs["cpu"]
+            for f in ("n_pixels", "frame_valid", "ac_plot_valid", "sync_dx", "sync_dy",
+                      "ac_calls", "pll_locked"):
+                assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), (name, b, f)
+            assert int(states["cuda"].phase_fix) == int(states["cpu"].phase_fix), (name, b)
+            assert int(states["cuda"].fill) == int(states["cpu"].fill), (name, b)
+            worst[name] = max(worst[name], (g.frame.cpu() - c.frame).abs().max().item())
+        assert worst[name] <= STEP_TOL[name], (name, worst[name])
     return worst
 
 
@@ -257,7 +400,7 @@ def profile_steady(cfg, n_blocks=6):
     from torch.profiler import ProfilerActivity, profile
 
     raster = render_test_pattern(cfg.height, cfg.width // 2)
-    warm_up(cfg, raster)
+    warm_up(cfg, raster, Params())
     sess = Session(cfg, Params(), ReplayU8(cfg, raster, n_blocks), device=DEV)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -288,37 +431,58 @@ def fetch_cost_us(reps=200):
     return float(np.median(times)) * 1e6
 
 
+KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
+    "K1": (box_resample_strided_cuda, "strided_resample.cu",
+           "tempestsdr_tpu/pallas/strided_kernel.py:65"),
+    "K2": (fused_demod_resample_cuda, "fused_demod_resample.cu",
+           "tempestsdr_tpu/pallas/fused_kernel.py:155"),
+    "K2'": (fused_demod_resample_u16_cuda, "fused_demod_resample.cu",
+            "bench/fused_u16_probe.py:42"),
+    "K3": (box_resample_pallas_cuda, "chunked_resample.cu",
+           "tempestsdr_tpu/pallas/resample_kernel.py:35"),
+    "K4": (box_resample_pallas_windows_cuda, "chunked_resample.cu",
+           "tempestsdr_tpu/pallas/resample_kernel.py:58"),
+}
+
+
 def main():
     smi = card()
-    t0 = time.time()
-    build.build(["strided_resample"])
-    print(f"built kernels in {time.time() - t0:.1f} s")
-    print(build.BUILD_LOG.get("strided_resample", "").strip())
+    t_start = time.time()
+    build.build(kernels.SOURCES)
+    print(f"built kernels in {time.time() - t_start:.1f} s")
+    for name in kernels.SOURCES:
+        print(build.BUILD_LOG.get(name, "").strip())
 
-    errs = {name: check_k1(cfg) for name, cfg in GEOMETRIES.items()}
+    errs = {name: check_kernels(cfg) for name, cfg in GEOMETRIES.items()}
     torch.cuda.synchronize()
-    print("K1 max_abs_err " + json.dumps(errs))
-    perf = {name: measure_k1(cfg) for name, cfg in GEOMETRIES.items()}
-    print("K1 timing " + json.dumps(perf))
+    print("max_abs_err " + json.dumps(errs))
+    perf = {name: measure_kernels(cfg) for name, cfg in GEOMETRIES.items()}
+    print("timing " + json.dumps(perf))
 
-    main_row = run_session("64MS/s", GEOMETRIES["64MS/s"], 12)
-    assert main_row["plots"] >= 2 and main_row["frames"] >= 6, main_row
-    k4_row = run_session("8MS/s", GEOMETRIES["8MS/s"], 4)
+    g64 = GEOMETRIES["64MS/s"]
+    rows = {"K1": run_session("default 64MS/s", g64, 12)}
+    assert rows["K1"]["plots"] >= 2 and rows["K1"]["frames"] >= 6, rows["K1"]
+    k4_row = run_session("default 8MS/s", GEOMETRIES["8MS/s"], 4)
     assert k4_row["frames"] > k4_row["blocks"], k4_row  # several frames per block
-    print(f"step on the card vs on the CPU (8MS/s, 4 blocks): frames max abs diff "
-          f"{check_against_cpu(GEOMETRIES['8MS/s']):.3g}")
-    profile_steady(GEOMETRIES["64MS/s"])
+    for kid, resampler in (("K2", "fused"), ("K3", "pallas"), ("K4", "pallas_windows")):
+        rows[kid] = run_session(f"{resampler} 64MS/s", g64, 8, Params(resampler=resampler),
+                                KERNELS[kid][0].__name__)
+    launches = {kid: row["launches"][KERNELS[kid][0].__name__] for kid, row in rows.items()}
+    launches["K2'"] = stream_k2_u16(g64, 8)
+    print("step on the card vs on the CPU (8MS/s, 3 blocks), frames max abs diff "
+          + json.dumps(check_against_cpu(GEOMETRIES["8MS/s"])))
+    profile_steady(g64)
     print(f"per-block host fetch round trip: {fetch_cost_us():.1f} us")
+    print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
-    p = perf["64MS/s"]
-    kern = [dict(
-        name="K1 box_resample_strided_cuda", route="cuda",
-        source="tempestsdr_tpu_torch/csrc/strided_resample.cu",
-        replaces="tempestsdr_tpu/pallas/strided_kernel.py:65",
-        launches=main_row["launches"]["box_resample_strided_cuda"],
-        max_abs_err=errs["64MS/s"], ms=p["ms"], plain_ms=p["plain_ms"],
-        bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None,
-    )]
+    kern = []
+    for kid, (fn, src, replaces) in KERNELS.items():
+        p = perf["64MS/s"][kid]
+        kern.append(dict(
+            name=f"{kid} {fn.__name__}", route="cuda", source=f"tempestsdr_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=launches[kid],
+            max_abs_err=max(e[kid] for e in errs.values()), ms=p["ms"], plain_ms=p["plain_ms"],
+            bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None))
     print(f"card: {smi}")
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,10 +2,27 @@
 its kernel's plain PyTorch version on CPU tensors, launches the kernel on
 CUDA tensors (or raises), and counts its launches."""
 
+from .chunked_resample import (  # noqa: F401
+    box_resample_pallas_cuda,
+    box_resample_pallas_windows_cuda,
+)
+from .fused_demod_resample import (  # noqa: F401
+    fused_demod_resample_cuda,
+    fused_demod_resample_u16_cuda,
+)
 from .strided_resample import box_resample_strided_cuda  # noqa: F401
 
 # every kernel wrapper of the port, for launch accounting
-WRAPPERS = (box_resample_strided_cuda,)
+WRAPPERS = (
+    box_resample_strided_cuda,
+    fused_demod_resample_cuda,
+    fused_demod_resample_u16_cuda,
+    box_resample_pallas_cuda,
+    box_resample_pallas_windows_cuda,
+)
+
+# the CUDA sources under csrc/, one library each
+SOURCES = ("strided_resample", "fused_demod_resample", "chunked_resample")
 
 
 def reset_launch_counts() -> None:

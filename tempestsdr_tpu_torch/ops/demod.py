@@ -40,6 +40,13 @@ def normalize_iq(raw: torch.Tensor) -> torch.Tensor:
     return x / scale
 
 
+def _sqrt(power: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt on either device (see the module note)."""
+    if power.device.type == "cpu":
+        return torch.sqrt(power.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(power)
+
+
 def am_demod(iq: torch.Tensor) -> torch.Tensor:
     """Envelope of interleaved IQ: float32[..., 2n] (or complex64[..., n])
     -> float32[..., n]."""
@@ -47,7 +54,20 @@ def am_demod(iq: torch.Tensor) -> torch.Tensor:
         return iq.abs().to(torch.float32)
     i = iq[..., 0::2]
     q = iq[..., 1::2]
-    power = i * i + q * q
-    if power.device.type == "cpu":
-        return torch.sqrt(power.to(torch.float64)).to(torch.float32)
-    return torch.sqrt(power)
+    return _sqrt(i * i + q * q)
+
+
+def demod_raw_interleaved(raw: torch.Tensor) -> torch.Tensor:
+    """Normalize + demod of 1-D interleaved IQ from the integer (I, Q) pair:
+    sqrt(I^2 + Q^2) * scale, the byte-pair decode kernel K2 reproduces bit
+    for bit. For int8/uint8 this equals am_demod(normalize_iq(raw)) exactly
+    (I^2 + Q^2 is an exact integer and 1/128 a power of two); int16 rounds
+    as the JAX package's form does. Other dtypes take the generic pair."""
+    if raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8, torch.int16):
+        pair = raw.view(-1, 2).to(torch.float32)
+        if raw.dtype == torch.uint8:
+            pair = pair - 128.0
+        scale = 1.0 / 32767.0 if raw.dtype == torch.int16 else 1.0 / 128.0
+        a, b = pair[:, 0], pair[:, 1]
+        return _sqrt(a * a + b * b) * torch.tensor(scale, dtype=torch.float32)
+    return am_demod(normalize_iq(raw))

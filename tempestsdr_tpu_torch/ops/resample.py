@@ -1,6 +1,6 @@
 """Fractional box resampling, samplerate -> pixelrate: the plain PyTorch
-counterpart of tempestsdr_tpu.ops.resample for the strided (m pixels per
-sample) form.
+counterpart of tempestsdr_tpu.ops.resample — the strided (m pixels per
+sample) form, the chunked form for any rate, and nearest-neighbour.
 
 Each output pixel is the integral of the piecewise-constant envelope over
 the pixel's window [a_p, a_p + inv), a_p = phase + p*inv, times the rate
@@ -14,7 +14,9 @@ box_resample_strided is the plain version of kernel K1
 TPU and the one K1 is held against on the card. It keeps the JAX form's
 G-aligned windows and its float operation order so the two agree to the
 last bit on the CPU; only the TPU interleave matmul became an index
-reshape.
+reshape. box_resample_block_chunked is the plain version of kernels K3 and
+K4 (kernels/chunked_resample.py) and likewise keeps the JAX form's windows
+and float order; only its final reduction sums in torch's order.
 """
 
 from __future__ import annotations
@@ -39,6 +41,81 @@ def resample_counts(phase_fix: torch.Tensor, inv_fix: torch.Tensor, n_samples: i
     n_out64 = torch.clamp((size_fix - phase_fix) // inv_fix, min=0)
     new_phase = phase_fix + n_out64 * inv_fix - size_fix
     return n_out64.to(torch.int32), new_phase
+
+
+def box_resample_block_chunked(x_ext, phase_fix, inv_fix, *, n_samples: int, max_pix: int,
+                               taps: int, inv_nominal: float, chunk: int = 128):
+    """Resample one block at any rate (same contract as box_resample_strided).
+
+    Pixels go in chunks of `chunk`; the exact int64 phase gives each chunk's
+    first window start, within a chunk the positions are an f32 ramp, and
+    each chunk reduces the dense overlap weights against one contiguous
+    G-aligned window:
+
+        out[p] = rate * sum_j clip(min(pos_p + inv, j + 1) - max(pos_p, j), 0) * win[j]
+
+    The weight tensor is (n_chunks, chunk, w_pad) f32: about 1 GB at the
+    64 MS/s geometry, built in place to hold the peak at two of them.
+    """
+    dev = x_ext.device
+    n_out, new_phase = resample_counts(phase_fix, inv_fix, n_samples)
+    inv_f = inv_fix.to(torch.float32) * _INV_SCALE
+    rate_f = _f32(float(1 << FRAC_BITS), dev) / inv_fix.to(torch.float32)
+
+    G = 32
+    n_chunks = -(-max_pix // chunk)
+    w_in = int(np.ceil(chunk * inv_nominal * 1.02)) + taps + 2
+    w_rows = -(-(w_in + G - 1) // G) + 1
+    w_pad = w_rows * G
+
+    c = torch.arange(n_chunks, dtype=torch.int64, device=dev)
+    base = phase_fix + (c * chunk) * inv_fix
+    start = (base >> FRAC_BITS).to(torch.int32)  # floor; may be -1 at block start
+    frac = (base - (start.to(torch.int64) << FRAC_BITS)).to(torch.float32) * _INV_SCALE
+
+    n_rows = -(-(x_ext.shape[0] + w_pad) // G)
+    x2 = torch.cat([x_ext, torch.zeros((n_rows * G - x_ext.shape[0],), dtype=x_ext.dtype,
+                                       device=dev)]).reshape(n_rows, G)
+    target = start + taps
+    row0 = torch.clamp(torch.div(target, G, rounding_mode="floor"), 0, n_rows - w_rows)
+    rows = row0.to(torch.int64)[:, None] + torch.arange(w_rows, device=dev)[None, :]
+    win = x2[rows].reshape(n_chunks, w_pad)
+    misalign = (target - row0 * G).to(torch.float32)
+
+    r = torch.arange(chunk, dtype=torch.float32, device=dev)
+    pos = ((frac + misalign)[:, None] + r[None, :] * inv_f)[:, :, None]  # (n_chunks, chunk, 1)
+    j = torch.arange(w_pad, dtype=torch.float32, device=dev)
+    w = torch.minimum(pos + inv_f, j + 1.0)
+    w.sub_(torch.maximum(pos, j)).clamp_(min=0.0)
+    out = torch.bmm(w, win[:, :, None]).reshape(n_chunks * chunk) * rate_f
+    del w
+
+    valid = torch.arange(max_pix, dtype=torch.int32, device=dev) < n_out
+    pixels = out[:max_pix]
+    return torch.where(valid, pixels, torch.zeros_like(pixels)), n_out, new_phase
+
+
+def nn_resample_block(x, phase_fix, inv_fix, *, n_samples: int, max_pix: int):
+    """Nearest-neighbour mode (dsp.c:274-277): out[p] = x[(size*p) // n_out],
+    from an f32 estimate with the JAX package's exact int64 floor
+    correction. x: f32[n_samples] (this block's envelope, no tail)."""
+    dev = x.device
+    n_out, new_phase = resample_counts(phase_fix, inv_fix, n_samples)
+    n_out64 = n_out.to(torch.int64)
+
+    p = torch.arange(max_pix, dtype=torch.int64, device=dev)
+    num = n_samples * p
+    ratio = _f32(float(n_samples), dev) / torch.clamp(n_out, min=1).to(torch.float32)
+    q = (p.to(torch.float32) * ratio).to(torch.int64)
+    # exact floor correction: the largest q with q*n_out <= num
+    q = torch.where(q * n_out64 > num, q - 1, q)
+    q = torch.where((q + 1) * n_out64 <= num, q + 1, q)
+    q = torch.where(q * n_out64 > num, q - 1, q)
+
+    valid = p < n_out64
+    idx = torch.clamp(q, 0, n_samples - 1)
+    pixels = torch.where(valid, x[idx], torch.zeros((), dtype=torch.float32, device=dev))
+    return pixels, n_out, new_phase
 
 
 def plan_strided(inv_nominal: float, taps: int, *, L: int | None = None,

@@ -7,7 +7,11 @@ reference's threads do (SURVEY.md §3.2-3.4), as tempestsdr_tpu's make_step:
                          |
      drop compensation (exact phase arithmetic), PLL-modulated rate
                          |
-     fractional box resample to pixel rate (K1 on the card)
+     [optional FIR low-pass]
+                         |
+     fractional box resample to pixel rate (Params.resampler: K1, K3 or K4
+     on the card, or a plain form; nearest-neighbour; or K2, which also
+     does the decode and demod above in the same launch)
                          |
      manual-sync pixel skip + frame fold
                          |
@@ -20,8 +24,8 @@ the few integers they depend on in ONE host fetch per block — n_out, drop
 flag, fold fill, pending skip and ring fill, packed into one tensor — and
 branches in Python. The slices the JAX step takes at traced offsets become
 plain slices at those host offsets, asserted in range (lax.dynamic_slice
-would clamp). K1 needs no branch: its tap loop covers the whole PLL
-headroom. Autoshift needs the detected position as a roll shift, one more
+would clamp). K1 and K2 need no branch: their tap loops cover the whole
+PLL headroom. Autoshift needs the detected position as a roll shift, one more
 fetch per emitted frame, only with Params.autoshift.
 
 The step updates the fold buffer and the autocorrelation ring in place: it
@@ -44,11 +48,19 @@ from ..config import (
 )
 from ..device import resolve_device
 from ..params import Params
+from ..kernels.chunked_resample import box_resample_pallas_cuda, box_resample_pallas_windows_cuda
+from ..kernels.fused_demod_resample import fused_demod_resample_cuda
 from ..kernels.strided_resample import box_resample_strided_cuda
 from ..ops.autocorr import accumulate_running_mean, autocorrelation_magnitude
 from ..ops.demod import am_demod, normalize_iq
+from ..ops.fir import design_lowpass_fir, fir_apply_block
 from ..ops.frame import autogain_run, collapse_v_h, time_lowpass
-from ..ops.resample import box_resample_strided, plan_strided
+from ..ops.resample import (
+    box_resample_block_chunked,
+    box_resample_strided,
+    nn_resample_block,
+    plan_strided,
+)
 from ..ops.sync import (
     FRAMERATE_DX_LOWPASS_COEFF_HEIGHT,
     FRAMERATE_DX_LOWPASS_COEFF_WIDTH,
@@ -81,29 +93,48 @@ class StepHost(NamedTuple):
 
 def _unsupported(params: Params) -> str | None:
     """Params this slice does not port yet, with the ROADMAP.md item that will."""
-    if params.fir_lowpass_taps:
-        return "fir_lowpass_taps (ROADMAP.md Queue 1: FIR path)"
-    if params.nearest_neighbour:
-        return "nearest_neighbour (ROADMAP.md Queue 1: nn_resample_block)"
     if params.superresolution:
         return "superresolution (ROADMAP.md Queue 1: superband.py)"
-    if params.resampler not in ("auto", "strided"):
-        return f"resampler={params.resampler!r} (ROADMAP.md Queue 1: kernels K2-K4)"
     return None
 
 
-def _pick_resampler(config: PipelineConfig, params: Params, device: torch.device):
-    """"auto": K1 for CUDA tensors when the plan gives m == 2, else the plain
-    strided form (the CPU, or another pixel ratio). "strided": the plain
-    form everywhere."""
+def _pick_resampler(config: PipelineConfig, params: Params):
+    """Params.resampler -> a box resampler, with the JAX package's choices
+    and fallbacks (all share the exact int64 carry contract). The kernel
+    wrappers run their plain versions on CPU tensors, so on the CPU "auto"
+    and "pallas_strided" run the plain strided form, "pallas" and
+    "pallas_windows" the plain chunked form. On CUDA tensors:
+    "auto"/"pallas_strided" at m == 2 -> K1, "pallas" -> K3,
+    "pallas_windows" -> K4; "strided" and "chunked" are the plain forms."""
+    choice = params.resampler
     plan = plan_strided(config.samples_per_pixel, config.resample_taps)
-    if plan is None:
-        raise NotImplementedError(
-            "geometry without a strided plan needs box_resample_block_chunked "
-            "(ROADMAP.md Queue 1: chunked resampler)")
-    if params.resampler == "auto" and plan[0] == 2 and device.type == "cuda":
-        return box_resample_strided_cuda
-    return box_resample_strided
+    if choice in ("auto", "pallas_strided"):
+        if plan is None:
+            return box_resample_block_chunked
+        return box_resample_strided_cuda if plan[0] == 2 else box_resample_strided
+    if choice == "strided":
+        return box_resample_strided
+    if choice == "chunked":
+        return box_resample_block_chunked
+    if choice == "pallas":
+        return box_resample_pallas_cuda
+    if choice == "pallas_windows":
+        return box_resample_pallas_windows_cuda
+    if choice == "fused":
+        # the fused preconditions failed (_fused_wanted): the strided form
+        return box_resample_strided
+    raise ValueError(f"unknown resampler {choice!r}")
+
+
+def _fused_wanted(config: PipelineConfig, params: Params) -> bool:
+    """Static preconditions of K2 (Params.resampler == "fused"), as the JAX
+    package's: no FIR (K2 resamples the raw envelope), box mode, the m == 2
+    geometry and a block of a multiple of 4096 samples. The raw block's
+    dtype (1-D uint8/int8) is checked per call."""
+    if params.resampler != "fused" or params.nearest_neighbour or params.fir_lowpass_taps:
+        return False
+    plan = plan_strided(config.samples_per_pixel, config.resample_taps)
+    return plan is not None and plan[0] == 2 and config.block_samples % 4096 == 0
 
 
 def _collapse(config: PipelineConfig, params: Params, frame2d):
@@ -207,7 +238,12 @@ class Step:
             raise NotImplementedError(f"not ported yet: {why}")
         self.config, self.params = config, params
         self.device = resolve_device(device)
-        self.resample = _pick_resampler(config, params, self.device)
+        self.resample = _pick_resampler(config, params)
+        self.fused = _fused_wanted(config, params)
+        self.fir_taps = None
+        if params.fir_lowpass_taps:
+            self.fir_taps = torch.from_numpy(design_lowpass_fir(
+                params.fir_lowpass_taps, min(1.0 / config.samples_per_pixel, 0.98))).to(self.device)
         self.run_autocorr = config.autocorr and not params.autocorr_plots_off
         if self.run_autocorr and config.ac_round_samples < config.block_samples:
             raise ValueError("autocorr round shorter than a block; shrink block_samples")
@@ -243,13 +279,29 @@ class Step:
         inv_corr = torch.round(self.inv0_f32 * corr_factor).to(torch.int64)
         inv_fix = cfg.inv0_fix - inv_corr
 
-        # ---- demod + resample
-        env = am_demod(normalize_iq(raw))
-        x_ext = torch.cat([state.tail, env])
-        pixels, n_out, phase2 = self.resample(
-            x_ext, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
-            inv_nominal=cfg.samples_per_pixel)
-        new_tail = x_ext[x_ext.shape[0] - taps:].clone()
+        # ---- demod + resample: K2 in one launch, or the demod, the optional
+        # FIR (the autocorrelation ring takes the pre-FIR envelope) and the
+        # chosen resampler
+        fir_tail = state.fir_tail
+        if self.fused and raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8):
+            env, pixels, n_out, phase2 = fused_demod_resample_cuda(
+                raw, state.tail, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
+                inv_nominal=cfg.samples_per_pixel)
+            new_tail = env[n - taps:].clone()
+        else:
+            env = am_demod(normalize_iq(raw))
+            env_rs = env
+            if self.fir_taps is not None:
+                env_rs, fir_tail = fir_apply_block(env, state.fir_tail, self.fir_taps)
+            x_ext = torch.cat([state.tail, env_rs])
+            if params.nearest_neighbour:
+                pixels, n_out, phase2 = nn_resample_block(env_rs, phase, inv_fix, n_samples=n,
+                                                          max_pix=mp)
+            else:
+                pixels, n_out, phase2 = self.resample(
+                    x_ext, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
+                    inv_nominal=cfg.samples_per_pixel)
+            new_tail = x_ext[x_ext.shape[0] - taps:].clone()
 
         # ---- the one host fetch of the block
         drop_all = phase >= (n << FRAC_BITS)
@@ -328,7 +380,7 @@ class Step:
         new_state = StreamState(
             phase_fix=phase2,
             tail=new_tail,
-            fir_tail=state.fir_tail,
+            fir_tail=fir_tail,
             skip_pixels=self._full(pend, torch.int32),
             fill=self._full(fill_new, torch.int32),
             framebuf=framebuf,

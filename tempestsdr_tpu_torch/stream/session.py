@@ -153,7 +153,9 @@ class Session:
                 controls = StepControls(int(blk.dropped), int(self._pending_sync),
                                         float(self._motionblur))
                 self._pending_sync = 0
-                raw = torch.from_numpy(np.ascontiguousarray(blk.samples)).to(self.device)
+                # 1-D in the source's raw dtype: uint8/int8 blocks reach K2
+                # (resampler="fused") as they come off the source
+                raw = torch.from_numpy(np.ascontiguousarray(blk.samples).reshape(-1)).to(self.device)
                 self.state, out = self._step(self.state, raw, controls)
                 blocks += 1
                 frames += self._dispatch(out)

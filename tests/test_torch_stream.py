@@ -60,14 +60,15 @@ def _np(x):
 
 
 def _compare_streams(block, n_blocks, params, events=None, refresh_true=50.03,
-                     motionblur=0.3):
+                     motionblur=0.3, frame_atol=FRAME_ATOL):
     """Drive both steps over the same u8 stream; `events` maps a block index
     to (samples_dropped, syncoffset). Returns the JAX outputs seen."""
     events = events or {}
     jcfg, tcfg = _configs(block)
     jstep = jax.jit(j_make_step(jcfg, JParams(**params)))
     tstep = make_step(tcfg, Params(**params), device="cpu")
-    js, ts = j_init_state(jcfg), init_state(tcfg, device="cpu")
+    fir = params.get("fir_lowpass_taps", 0)
+    js, ts = j_init_state(jcfg, fir), init_state(tcfg, fir, device="cpu")
     raster = render_test_pattern(LINES, TWIDTH)
     seen = dict(frames=0, rounds=0, k=tcfg.frames_per_block, locked=0)
     for b in range(n_blocks):
@@ -85,8 +86,9 @@ def _compare_streams(block, n_blocks, params, events=None, refresh_true=50.03,
             assert int(getattr(ts, f)) == int(getattr(js, f)), (b, f)
         assert [int(v) for v in ts.sync_x] == [int(v) for v in js.sync_x]
         assert [int(v) for v in ts.sync_y] == [int(v) for v in js.sync_y]
+        np.testing.assert_array_equal(_np(ts.fir_tail), np.asarray(js.fir_tail))
         np.testing.assert_allclose(_np(to.frame), np.asarray(jo.frame),
-                                   rtol=FRAME_RTOL, atol=FRAME_ATOL, err_msg=f"block {b}")
+                                   rtol=FRAME_RTOL, atol=frame_atol, err_msg=f"block {b}")
         if bool(jo.ac_plot_valid):
             for f in ("ac_frame_plot", "ac_line_plot"):
                 want = np.asarray(getattr(jo, f))
@@ -129,13 +131,59 @@ def test_step_param_flags(flags):
     assert seen["frames"] >= 2
 
 
-@pytest.mark.parametrize("flags", [
-    dict(fir_lowpass_taps=15), dict(nearest_neighbour=True), dict(superresolution=True),
-    dict(resampler="fused"), dict(resampler="chunked"),
+@pytest.fixture()
+def interpret_pallas(monkeypatch):
+    """The JAX step's TPU resample kernels in interpret mode
+    (tests/test_pallas.py:14-25)."""
+    import jax.experimental.pallas as pl
+    import tempestsdr_tpu.pallas.resample_kernel as rk
+
+    orig = pl.pallas_call
+
+    def interp(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(rk.pl, "pallas_call", interp)
+
+
+# The JAX step's TPU kernels (interpret mode on the CPU) against the port's
+# plain versions. K1/K2's pixels differ from the plain strided form by
+# ~1e-6 (their f32 ramps differ), K3/K4's from the chunked form by up to
+# 3e-4 (tests/test_pallas.py:99), and autogain scales pixel errors by
+# ~1/span: frames within 1e-4 (8.6e-6 seen) and 1e-3 (1.4e-4 seen). Both
+# are inside the JAX package's own kernel-vs-XLA step tolerance, 2e-3
+# (tests/test_stream.py:91,125).
+K1_FRAME_ATOL, K3_FRAME_ATOL = 1e-4, 1e-3
+
+
+@pytest.mark.parametrize("flags,frame_atol", [
+    (dict(resampler="fused"), K1_FRAME_ATOL),
+    (dict(resampler="pallas"), K3_FRAME_ATOL),
+    (dict(resampler="pallas_windows"), K3_FRAME_ATOL),
+    (dict(resampler="pallas_strided"), K1_FRAME_ATOL),
+    (dict(resampler="chunked"), FRAME_ATOL),
+    (dict(fir_lowpass_taps=15), FRAME_ATOL),
+    (dict(nearest_neighbour=True), FRAME_ATOL),
+], ids=lambda v: ",".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict) else None)
+def test_step_resampler_paths(interpret_pallas, flags, frame_atol):
+    """Every resampler choice, the FIR and nearest-neighbour: the port's CPU
+    step (plain versions) against the JAX step, with a drop and a sync
+    shift. Carries and integer outputs exact, frames within frame_atol."""
+    seen = _compare_streams(8192, 10, flags, events={4: (3000, 0), 6: (0, 777)},
+                            frame_atol=frame_atol)
+    assert seen["frames"] >= 2
+
+
+@pytest.mark.parametrize("flags,exc", [
+    (dict(superresolution=True), NotImplementedError),
+    (dict(resampler="no_such_resampler"), ValueError),
 ])
-def test_unported_params_raise(flags):
+def test_unported_params_raise(flags, exc):
+    """superresolution is not ported yet (its error names the ROADMAP item);
+    an unknown resampler name is a ValueError, as in the JAX package."""
     _, tcfg = _configs(8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(exc, match="ROADMAP.md" if exc is NotImplementedError else "resampler"):
         make_step(tcfg, Params(**flags), device="cpu")
 
 
