@@ -10,8 +10,14 @@
    gives it at the 64 MS/s and 8 MS/s geometries, over three streamed
    blocks at three rates: K1 (strided), K2 and K2' (fused decode + demod +
    resample, uint8 and int8), K3 and K4 (chunked);
+   K1 and K3 also on an envelope that starts 4 bytes past a 16-byte
+   boundary, on a phase past the block (n_out == 0) and on a phase in the
+   tail, where their window staging takes its other branches;
 3. times each kernel (CUDA events, L2 flushed before each launch) beside
-   its plain version and its memory/compute bound, K2 and K2' in turns;
+   its plain version and its memory/compute bound, K2 and K2' in turns; K1
+   and K3 also warm (the envelope just written by a torch.cat, as in the
+   step) and as one of eight launches in a row; and the floors those times
+   are read against: an empty launch, and a float4 copy of the same bytes;
 4. runs Session.run end to end on a synthetic uint8 source: the default
    path at 64 MS/s (K == 1) and 8 MS/s (K == 4), and resampler="fused",
    "pallas" and "pallas_windows" at 64 MS/s, checking frames,
@@ -19,8 +25,8 @@
    streams the same blocks through its function entry;
 5. cross-checks the card's step against the CPU step at 8 MS/s for six
    configurations, and profiles steady default blocks;
-6. prints a JSON line of per-kernel numbers, then, as the last line,
-   {"ok": true, "device": {...}}.
+6. prints a JSON line of the floors, a JSON line of per-kernel numbers,
+   then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 2
 before printing any result.
@@ -55,6 +61,8 @@ from tempestsdr_tpu_torch.kernels.fused_demod_resample import (  # noqa: E402
 from tempestsdr_tpu_torch.kernels.strided_resample import (  # noqa: E402
     box_resample_strided_cuda,
     k1_margin,
+    launch_copy_floor,
+    launch_noop,
 )
 from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
     box_resample_block_chunked,
@@ -167,23 +175,98 @@ def check_kernels(cfg):
     return errs
 
 
-def time_launches(fn, reps=30):
-    """Median device ms of fn(), L2 flushed (a 256 MB write) before each
-    call so inputs come from device memory as in the step. A spin kernel
-    ahead of the start event keeps the card busy while the host enqueues
-    fn's launches, so host overhead stays out of the time."""
-    flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+def check_edges(cfg):
+    """K1 and K3 against their plain versions where their window staging
+    takes its other branches: an envelope that starts 4 bytes past a
+    16-byte boundary (a view), a phase past the block (negative numerator:
+    n_out == 0 and every pixel 0) and a phase in the tail (the first window
+    starts before the envelope). Carries exact, pixels within K1_TOL and
+    K3_TOL. Returns the max abs pixel error per kernel."""
+    rng = np.random.default_rng(9)
+    n, taps = cfg.block_samples, cfg.resample_taps
+    x_pad = torch.cat([torch.zeros(1, device=DEV),
+                       torch.from_numpy(rng.random(n + taps, dtype=np.float32) * 1.5).to(DEV)])
+    x = x_pad[1:].clone()
+    assert x.data_ptr() % 16 == 0 and x_pad[1:].data_ptr() % 16 == 4
+    inv = rate_inv(cfg, 1.0)
+    errs = {"K1": 0.0, "K3": 0.0}
+    for name, (xe, ph) in {"unaligned": (x_pad[1:], 0), "negative num": (x, (n + 5) << 40),
+                           "phase in the tail": (x, -(1 << 40) - 12345)}.items():
+        phase = torch.tensor(ph, dtype=torch.int64, device=DEV)
+        for kid, fn, plain, tol in (
+                ("K1", box_resample_strided_cuda, box_resample_strided, K1_TOL),
+                ("K3", box_resample_pallas_cuda, box_resample_block_chunked, K3_TOL)):
+            a, na, pa = call(fn, cfg, xe, phase, inv)
+            b, nb, pb = call(plain, cfg, xe, phase, inv)
+            torch.cuda.synchronize()
+            assert int(na) == int(nb) and int(pa) == int(pb), (kid, name, int(na), int(nb))
+            err = (a - b).abs().max().item()
+            assert err <= tol, f"{kid} ({name}) differs from its plain version by {err}"
+            if name == "negative num":
+                assert int(na) == 0 and not a.any(), (kid, name)
+            else:
+                assert int(na) > 0 and a[:int(na)].any(), (kid, name)
+            errs[kid] = max(errs[kid], err)
+            del a, b
+    return errs
+
+
+def time_launches(fn, reps=30, warm_input=None, flush=True):
+    """Median device ms of fn(). By default L2 is flushed (a 256 MB write)
+    before each call, so inputs come from device memory. With warm_input,
+    fn(warm_input()) is timed instead with no flush: its input was written
+    just before (by a torch.cat, as the step writes the envelope) and is
+    still in L2, which is what the step's launch finds. A spin kernel ahead
+    of the start event keeps the card busy while the host enqueues fn's
+    launches, so host overhead stays out of the time."""
+    flush_buf = (torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+                 if flush and warm_input is None else None)
     times = []
     for _ in range(reps + 3):
-        flush.zero_()
+        args = (warm_input(),) if warm_input else ()
+        if flush_buf is not None:
+            flush_buf.zero_()
         torch.cuda._sleep(2_000_000)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        fn(*args)
         e.record()
         torch.cuda.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times[3:]))
+
+
+def each_of(fn, k=8, reps=30):
+    """Device ms per launch when k launches follow each other between one
+    pair of events (inputs warm): the time a launch adds to a stream of
+    launches, without the event pair's and the first launch's overhead."""
+    def many():
+        for _ in range(k):
+            fn()
+
+    one = time_launches(fn, reps, flush=False)
+    return (time_launches(many, reps, flush=False) - one) / (k - 1)
+
+
+def measure_floors(cfg):
+    """What K1's and K3's times at this geometry are read against: an empty
+    kernel through the same ctypes route (the event pair and a launch), and
+    a grid-stride float4 copy kernel that reads 4*(n + taps) bytes and
+    writes 4*max_pix bytes, flushed and warm as the kernels are timed. The
+    copy computes nothing of K1's function; it is no library call."""
+    n, mp, taps = cfg.block_samples, cfg.max_block_pixels, cfg.resample_taps
+    tail, body = torch.zeros(taps, device=DEV), torch.rand(n, device=DEV)
+    x = torch.cat([tail, body])
+    dst = torch.empty(mp, device=DEV)
+    noop = lambda: launch_noop(DEV)  # noqa: E731
+    copy = lambda: launch_copy_floor(x, dst)  # noqa: E731
+    return dict(
+        noop_ms=time_launches(noop), noop_each_of_8_ms=each_of(noop),
+        copy_ms=time_launches(copy),
+        copy_warm_ms=time_launches(lambda xw: launch_copy_floor(xw, dst),
+                                   warm_input=lambda: torch.cat([tail, body])),
+        copy_each_of_8_ms=each_of(copy),
+        copy_bytes=4 * (n + taps) // 16 * 16 + 4 * mp // 16 * 16)
 
 
 def bound(nbytes, flops):
@@ -228,14 +311,24 @@ def measure_kernels(cfg):
                       **fused_bound)
 
     resample_bound = bound(4 * (n + taps) + 4 * mp + carries, resample_flops)
+    body = x[taps:].clone()
+    fresh = lambda: torch.cat([tail, body])  # noqa: E731
+
+    def in_step(fn):  # the extra timings of K1 and K3: what a launch in the step pays
+        return dict(
+            ms_warm=time_launches(lambda xw: call(fn, cfg, xw, phase, inv), warm_input=fresh),
+            ms_each_of_8=each_of(lambda: call(fn, cfg, x, phase, inv)))
+
     out["K1"] = dict(
         ms=time_launches(lambda: call(box_resample_strided_cuda, cfg, x, phase, inv)),
+        **in_step(box_resample_strided_cuda),
         plain_ms=time_launches(lambda: call(box_resample_strided, cfg, x, phase, inv)),
         margin_taps=k1_margin(cfg.samples_per_pixel), **resample_bound)
     chunked_plain = time_launches(lambda: call(box_resample_block_chunked, cfg, x, phase, inv),
                                   reps=10)
     out["K3"] = dict(
         ms=time_launches(lambda: call(box_resample_pallas_cuda, cfg, x, phase, inv)),
+        **in_step(box_resample_pallas_cuda),
         plain_ms=chunked_plain, **resample_bound)
     out["K4"] = dict(
         ms=time_launches(lambda: windows_resample_launch(windows, fracs, phase, inv,
@@ -446,6 +539,8 @@ KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
 
 
 def main():
+    if sys.argv[1:]:
+        sys.exit("usage: chip_smoke.py")
     smi = card()
     t_start = time.time()
     build.build(kernels.SOURCES)
@@ -456,6 +551,13 @@ def main():
     errs = {name: check_kernels(cfg) for name, cfg in GEOMETRIES.items()}
     torch.cuda.synchronize()
     print("max_abs_err " + json.dumps(errs))
+    edges = {name: check_edges(cfg) for name, cfg in GEOMETRIES.items()}
+    print("max_abs_err (unaligned, negative num, phase in the tail) " + json.dumps(edges))
+    for name, e in edges.items():
+        for kid, err in e.items():
+            errs[name][kid] = max(errs[name][kid], err)
+    floors = {name: measure_floors(cfg) for name, cfg in GEOMETRIES.items()}
+    print("floors " + json.dumps(floors))
     perf = {name: measure_kernels(cfg) for name, cfg in GEOMETRIES.items()}
     print("timing " + json.dumps(perf))
 
@@ -483,7 +585,10 @@ def main():
             replaces=replaces, launches=launches[kid],
             max_abs_err=max(e[kid] for e in errs.values()), ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None))
+        if "ms_warm" in p:  # K1 and K3
+            kern[-1].update(ms_warm=p["ms_warm"], ms_each_of_8=p["ms_each_of_8"])
     print(f"card: {smi}")
+    print(json.dumps({"floors": floors}))
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -37,18 +37,47 @@
 // spans three or more samples (inv > 1); tolerance against the plain
 // chunked form is 3e-4 either way.
 //
-// Design: one thread block per 256-pixel tile, one thread per pixel. K3
-// stages its window (w_in floats) in shared memory with coalesced,
-// bounds-checked loads; K4 reads its window row straight from device
-// memory (each row is contiguous and read by all 256 threads of its block,
-// so it comes from device memory about once).
+// At a block's size a launch is not a stream at the memory rate: measured
+// on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), an empty launch between
+// two events is 5 us, a plain float4 copy of the same bytes 9 us at the
+// 64 MS/s geometry, and what a design decides is how many
+// thread blocks are started and what each goes through before its first
+// load and between its loads and its stores.
+//
+// Design of K3: one thread block per group of `tiles` consecutive 256-pixel
+// tiles (8 where shared memory allows: the wrapper picks `tiles` so that a
+// group's window fits at any rate), 256 threads: 784 and 449 blocks at the
+// 64 and 8 MS/s geometries, all resident in one wave, where one tile per
+// block made 6,267 blocks in six waves; it measured faster than fewer blocks
+// walking several groups each behind a ring of window buffers. A group's
+// window is one contiguous stretch of x_ext (w_grp samples from the first
+// tile's start), staged into shared memory once (staged_window.cuh): 16-byte
+// asynchronous copies from the 16-byte boundary below it, whatever the
+// alignment of x_ext; checked 4-byte loads where it leaves x_ext; nothing
+// for a group with no complete pixel, which stores zeros. Each thread takes
+// four consecutive pixels of one tile at a time, one 16-byte store. No
+// thread waits on a 64-bit division: pixels are masked by a per-group count
+// that needs the quotient only in the one group n_out falls into, and one
+// thread of block 0 computes the carries while the copies are in flight.
+//
+// The 256-pixel tile stays the unit of the f32 ramp: each tile's start and
+// frac come from the exact int64 base and pos restarts at every tile, so
+// every pixel is what a one-tile-per-block kernel gives, bit for bit.
+//
+// Design of K4: one thread block per 256-pixel tile, one thread per pixel;
+// it reads its window row straight from device memory (each row is
+// contiguous and read by all 256 threads of its block, so it comes from
+// device memory about once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staged_window.cuh"
+
 namespace {
 
-constexpr int kTileP = 256;  // pixels per thread block, one per thread
+constexpr int kTileP = 256;  // pixels per tile: the unit of the f32 ramp (and K4's thread block)
+constexpr int kThreads = 256;  // K3's
 constexpr int kFracBits = 40;
 constexpr float kInvScale = 1.0f / (float)(1LL << kFracBits);
 
@@ -88,34 +117,55 @@ __device__ __forceinline__ void store_pixel(float* out, long long max_pix, long 
   if (p < max_pix) out[p] = p < n_out ? __fmul_rn(acc, rate) : 0.0f;
 }
 
-__global__ void __launch_bounds__(kTileP)
+__global__ void __launch_bounds__(kThreads, 8)
 chunked_resample_kernel(const float* __restrict__ x, long long x_len,
                         const long long* __restrict__ phase_p,
                         const long long* __restrict__ inv_p, long long n_samples,
                         float* __restrict__ out, int* __restrict__ n_out_p,
                         long long* __restrict__ new_phase_p, long long max_pix, int taps,
-                        int w_in) {
-  extern __shared__ float win[];  // w_in samples
-  __shared__ long long s_n_out;
+                        int w_in, int tiles, int w_grp) {
+  extern __shared__ __align__(16) float slot[];  // the group's window
   const long long phase = *phase_p;
   const long long inv = *inv_p;  // > 0
-  if (threadIdx.x == 0) s_n_out = block_carries(phase, inv, n_samples, n_out_p, new_phase_p);
+  const long long num = (n_samples << kFracBits) - phase;
+  const int tid = threadIdx.x;
+  const int group_pix = tiles * kTileP;
 
-  // exact tile base: arithmetic >> is floor for negative phases
-  const long long base = phase + (long long)blockIdx.x * kTileP * inv;
-  const long long start = base >> kFracBits;
-  const float frac = __fmul_rn(__ll2float_rn(base - (start << kFracBits)), kInvScale);
-  const long long w0 = start + taps;
-  for (int j = threadIdx.x; j < w_in; j += kTileP) {
-    const long long i = w0 + j;
-    win[j] = (i >= 0 && i < x_len) ? x[i] : 0.0f;
-  }
-  __syncthreads();
+  // exact group base: arithmetic >> is floor for negative phases
+  const long long p0 = (long long)blockIdx.x * group_pix;
+  const int lim = tsdr::valid_pixels(p0, group_pix, num, inv);
+  const long long start0 = (phase + p0 * inv) >> kFracBits;
+  if (lim > 0) tsdr::stage_window(slot, x, x_len, start0 + taps, w_grp, tid, kThreads);
+
+  if (blockIdx.x == 0 && tid == 0) block_carries(phase, inv, n_samples, n_out_p, new_phase_p);
 
   const float inv_f = __fmul_rn(__ll2float_rn(inv), kInvScale);
   const float rate = __fdiv_rn(1.0f, inv_f);
-  const float pos = __fadd_rn(frac, __fmul_rn((float)threadIdx.x, inv_f));
-  store_pixel(out, max_pix, s_n_out, box_sum(win, w_in, pos, inv_f), rate);
+  const float* grp = slot + tsdr::window_offset(x, start0 + taps);
+
+  tsdr::cp_async_wait_all();
+  __syncthreads();
+
+  for (int q0 = 4 * tid; q0 < group_pix; q0 += 4 * kThreads) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (q0 < lim) {  // lim == 0: the window was not staged and is not read
+      // the tile's own exact base; its window starts d samples into the group's
+      const long long base = phase + (p0 + (q0 & ~(kTileP - 1))) * inv;
+      const long long start = base >> kFracBits;
+      const float frac = __fmul_rn(__ll2float_rn(base - (start << kFracBits)), kInvScale);
+      const int d = (int)(start - start0);
+      const int w = min(w_in, w_grp - d);
+      const int r0 = q0 & (kTileP - 1);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (q0 + u < lim) {
+          const float pos = __fadd_rn(frac, __fmul_rn((float)(r0 + u), inv_f));
+          v[u] = __fmul_rn(box_sum(grp + d, w, pos, inv_f), rate);
+        }
+      }
+    }
+    tsdr::store4(out, p0 + q0, max_pix, v);
+  }
 }
 
 __global__ void __launch_bounds__(kTileP)
@@ -140,21 +190,26 @@ windows_resample_kernel(const float* __restrict__ windows, const float* __restri
 
 extern "C" int tsdr_chunked_tile() { return kTileP; }
 
-// Launches K3 on `stream`; returns the cudaError_t of the launch (0 = ok).
+// Launches K3 on `stream`, one thread block per group of `tiles` tiles, each
+// group with a window of w_grp samples (w_in: one tile's); returns the
+// cudaError_t of the launch (0 = ok). `out` must be 16-byte aligned (a fresh
+// torch allocation is).
 extern "C" int tsdr_chunked_resample(const float* x, long long x_len, const long long* phase,
                                      const long long* inv, long long n_samples, float* out,
                                      int* n_out, long long* new_phase, long long max_pix,
-                                     int taps, int w_in, void* stream) {
-  if (max_pix <= 0 || w_in <= 0) return 1;  // cudaErrorInvalidValue
-  const long long blocks = (max_pix + kTileP - 1) / kTileP;
-  const size_t smem = (size_t)w_in * sizeof(float);
+                                     int taps, int w_in, int tiles, int w_grp, void* stream) {
+  if (max_pix <= 0 || w_in <= 0 || tiles <= 0 || w_grp < w_in || ((uintptr_t)out & 15) != 0)
+    return 1;  // cudaErrorInvalidValue
+  const long long group_pix = (long long)tiles * kTileP;
+  const long long groups = (max_pix + group_pix - 1) / group_pix;
+  const size_t smem = (size_t)tsdr::slot_floats(w_grp) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         chunked_resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  chunked_resample_kernel<<<(unsigned)blocks, kTileP, smem, (cudaStream_t)stream>>>(
-      x, x_len, phase, inv, n_samples, out, n_out, new_phase, max_pix, taps, w_in);
+  chunked_resample_kernel<<<(unsigned)groups, kThreads, smem, (cudaStream_t)stream>>>(
+      x, x_len, phase, inv, n_samples, out, n_out, new_phase, max_pix, taps, w_in, tiles, w_grp);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,9 @@
 interface and loads them with ctypes.
 
 Each source compiles with nvcc for sm_90a into build/lib<name>-<hash>.so at
-first use; the hash of the source names the library, so an edited source
-never loads a stale build. build() starts one nvcc per missing library, all
+first use; the hash of the source, of the headers beside it (csrc/*.cuh)
+and of the flags names the library, so an edited source never loads a stale
+build. build() starts one nvcc per missing library, all
 at once, and waits for them together.
 """
 
@@ -35,8 +36,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD, f"lib{name}-{digest}.so")
 
 

@@ -10,6 +10,17 @@ and f32 ramps are the TPU kernels', not the chunked form's). Each launch
 also computes the exact int64 carries.
 
 K3 builds each 256-pixel tile's window in the kernel from device scalars.
+What bounds it on the card is memory, but at a block's size (5-10 MB) a
+launch is far from a stream at the memory rate (PERF.md): what a design
+decides is how many thread blocks start and what each goes through. The
+design: one thread block of 256 threads per group of group_tiles()
+consecutive tiles, all blocks resident in one wave at the 64 and 8 MS/s
+geometries; the group's one contiguous window staged into shared memory
+once with 16-byte asynchronous copies, pixels stored 16 bytes at a time,
+and no thread waiting on the carries' 64-bit division
+(kernels/window_plan.py states the staging arithmetic). x_ext may start at
+any 4-byte boundary, and windows that leave x_ext take checked loads in the
+kernel.
 K4 is handed the windows: the wrapper gathers them with one torch index, as
 XLA gathered them for the TPU kernel, and the kernel does the weights and
 the reduction. The TPU's grouping of 8 tiles per program and its 8-aligned
@@ -25,17 +36,39 @@ import torch
 
 from ..config import FRAC_BITS
 from ..ops.resample import box_resample_block_chunked
+from .window_plan import SMEM_PER_BLOCK, slot_floats
 
-TILE = 256  # pixels per thread block; must equal kTileP in the .cu source
+TILE = 256  # pixels per tile, the unit of the kernels' f32 ramp and K4's thread
+# block (not a K3 thread block's work: that is a group of tiles); equals kTileP
+GROUP_TILES = 8  # K3's tiles per group where shared memory allows
 _INV_SCALE = 2.0 ** (-FRAC_BITS)
 
 _LIB = None
 
 
-def window_len(inv_nominal: float, taps: int) -> int:
-    """w_in: window samples per tile, for up to 2 % more samples per pixel
-    than nominal (the PLL headroom is 0.2 %)."""
-    return int(math.ceil(TILE * inv_nominal * 1.02)) + taps + 2
+def window_len(inv_nominal: float, taps: int, tiles: int = 1) -> int:
+    """Window samples of `tiles` consecutive tiles (w_in for one), for up to
+    2 % more samples per pixel than nominal (the PLL headroom is 0.2 %)."""
+    return int(math.ceil(tiles * TILE * inv_nominal * 1.02)) + taps + 2
+
+
+def group_tiles(inv_nominal: float, taps: int) -> int:
+    """K3's tiles per group: GROUP_TILES, halved until the group's window
+    takes at most half of a thread block's shared memory (so that two blocks
+    fit an SM), down to one tile. Raises when even a one-tile window does
+    not fit."""
+    tiles = GROUP_TILES
+    while tiles > 1 and window_bytes(inv_nominal, taps, tiles) > SMEM_PER_BLOCK // 2:
+        tiles //= 2
+    if window_bytes(inv_nominal, taps, tiles) > SMEM_PER_BLOCK:
+        raise ValueError(f"K3's window of {window_len(inv_nominal, taps)} samples exceeds "
+                         "shared memory")
+    return tiles
+
+
+def window_bytes(inv_nominal: float, taps: int, tiles: int) -> int:
+    """Shared memory of a K3 thread block: the staged window of a group."""
+    return slot_floats(window_len(inv_nominal, taps, tiles)) * 4
 
 
 def _lib():
@@ -46,7 +79,7 @@ def _lib():
         lib = load("chunked_resample")
         p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.tsdr_chunked_resample.restype = i
-        lib.tsdr_chunked_resample.argtypes = [p, ll, p, p, ll, p, p, p, ll, i, i, p]
+        lib.tsdr_chunked_resample.argtypes = [p, ll, p, p, ll, p, p, p, ll, i, i, i, i, p]
         lib.tsdr_windows_resample.restype = i
         lib.tsdr_windows_resample.argtypes = [p, p, p, p, ll, p, p, p, ll, i, p]
         lib.tsdr_chunked_tile.restype = i
@@ -88,15 +121,14 @@ def box_resample_pallas_cuda(x_ext, phase_fix, inv_fix, *, n_samples: int, max_p
         return box_resample_block_chunked(x_ext, phase_fix, inv_fix, n_samples=n_samples,
                                           max_pix=max_pix, taps=taps, inv_nominal=inv_nominal)
     _check("K3", x_ext, phase_fix, inv_fix, n_samples, max_pix, taps)
-    w_in = window_len(inv_nominal, taps)
-    if w_in * 4 > 232448:  # a thread block's shared memory on Hopper
-        raise ValueError(f"K3's window of {w_in} samples exceeds shared memory")
+    tiles = group_tiles(inv_nominal, taps)
     phase_fix, inv_fix = phase_fix.contiguous(), inv_fix.contiguous()
     dev = x_ext.device
     out, n_out, new_phase = _outputs(max_pix, dev)
     _raise_on(_lib().tsdr_chunked_resample(
         x_ext.data_ptr(), x_ext.shape[0], phase_fix.data_ptr(), inv_fix.data_ptr(), n_samples,
-        out.data_ptr(), n_out.data_ptr(), new_phase.data_ptr(), max_pix, taps, w_in,
+        out.data_ptr(), n_out.data_ptr(), new_phase.data_ptr(), max_pix, taps,
+        window_len(inv_nominal, taps), tiles, window_len(inv_nominal, taps, tiles),
         torch.cuda.current_stream(dev).cuda_stream), "K3")
     box_resample_pallas_cuda.launches += 1
     return out, n_out, new_phase

@@ -8,6 +8,18 @@ n_out i32, new_phase i64). The kernel computes the exact int64 carries (as
 resample_counts does) and the chunk bases itself, from device scalars: one
 launch per block, no host round trip.
 
+What bounds it on the card is memory, but at a block's size (5-10 MB) a
+launch is far from a stream at the memory rate: on an NVIDIA H100 80GB HBM3
+at 700.00 W half of its ~10 us is the launch itself, and a plain copy of
+the same bytes takes as long as the kernel (PERF.md). The design: one
+thread block of 128 threads per 1024-sample chunk, all blocks resident in
+one wave at the 64 and 8 MS/s geometries; the chunk's window staged into
+shared memory once with 16-byte asynchronous copies, pixels stored 16 bytes
+at a time, and no thread waiting on the carries' 64-bit division
+(kernels/window_plan.py states the staging arithmetic). x_ext may start at
+any 4-byte boundary: the staged range is rounded to 16-byte boundaries of
+the address, and windows that leave x_ext take checked loads in the kernel.
+
 The tap loop covers the whole PLL headroom (config.PLL_HEADROOM_FRAC, which
 framerate_pll and the refresh nudge clamp to), so the kernel serves every
 block the step can produce and has no fallback branch.
@@ -23,7 +35,8 @@ import torch
 from ..config import PLL_HEADROOM_FRAC
 from ..ops.resample import box_resample_strided, plan_strided
 
-TILE = 1024  # samples per thread block; must equal kTile in the .cu source
+TILE = 1024  # samples per chunk, the unit of the kernel's f32 ramp (margin and
+# taps_eff follow from it); equals kTile in the .cu source
 
 
 def k1_margin(inv_nominal: float, tile: int = TILE):
@@ -51,6 +64,11 @@ def _lib():
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+        lib.tsdr_noop.restype = ctypes.c_int
+        lib.tsdr_noop.argtypes = [ctypes.c_void_p]
+        lib.tsdr_copy_floor.restype = ctypes.c_int
+        lib.tsdr_copy_floor.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                        ctypes.c_longlong, ctypes.c_void_p]
         lib.tsdr_strided_resample_tile.restype = ctypes.c_int
         if lib.tsdr_strided_resample_tile() != TILE:
             raise RuntimeError("strided_resample.cu tile differs from TILE")
@@ -97,3 +115,25 @@ def box_resample_strided_cuda(x_ext, phase_fix, inv_fix, *, n_samples: int, max_
 
 
 box_resample_strided_cuda.launches = 0
+
+
+def launch_noop(device) -> None:
+    """An empty kernel on the current stream: the launch floor of the
+    kernels' timings."""
+    err = _lib().tsdr_noop(torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty launch failed: cudaError_t {err}")
+
+
+def launch_copy_floor(src, dst) -> None:
+    """A float4 copy kernel that reads src once and writes dst once (whole
+    16-byte pieces): the time a stream of a kernel's bytes takes on the card
+    with no arithmetic. A yardstick for measurements; the port's paths do not
+    call it."""
+    for t in (src, dst):
+        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("the copy floor takes contiguous float32 CUDA tensors")
+    err = _lib().tsdr_copy_floor(src.data_ptr(), src.numel(), dst.data_ptr(), dst.numel(),
+                                 torch.cuda.current_stream(src.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"copy launch failed: cudaError_t {err}")

@@ -1,0 +1,341 @@
+"""The window staging arithmetic of K1 and K3 (kernels/window_plan.py, the host
+statement of csrc/staged_window.cuh) and the wrappers' sizing, on the CPU in
+pure Python and numpy: each staged window, after its round-down to a 16-byte
+boundary, contains every sample its pixels' taps index, at both ends of the
+PLL headroom and for negative, zero and late phases; a window fits shared
+memory at any rate; the division-free pixel count equals the carries'
+n_out; and a numpy model of each kernel's tiling (one chunk or group of
+tiles per thread block, staged aligned window, per-chunk f32 ramp) equals
+the TPU kernel it replaces, run in interpret mode by the JAX package on the
+same inputs (K1 within 4e-4, tests/test_ops.py:249; K3 within 3e-4,
+tests/test_pallas.py:99), and the port's plain version within the kernel's
+tolerance on the card (K1 2e-5, K3 3e-4); carries exact."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tempestsdr_tpu.pallas.strided_kernel import box_resample_strided_pallas
+
+from tempestsdr_tpu_torch import ops as tops
+from tempestsdr_tpu_torch.config import FRAC_BITS, PLL_HEADROOM_FRAC, PipelineConfig
+from tempestsdr_tpu_torch.kernels import chunked_resample as k3
+from tempestsdr_tpu_torch.kernels import strided_resample as k1
+from tempestsdr_tpu_torch.kernels.window_plan import (
+    SMEM_PER_BLOCK,
+    aligned_window,
+    slot_floats,
+    valid_pixels,
+)
+
+GEOMETRIES = {  # the README's flagship and demo geometries
+    "64MS/s": PipelineConfig(samplerate=64e6, height=628, refreshrate=60.0,
+                             block_samples=786432),
+    "8MS/s": PipelineConfig(samplerate=8e6, height=628, refreshrate=60.0, block_samples=450560),
+}
+PLL_ENDS = (1 - PLL_HEADROOM_FRAC, 1 + PLL_HEADROOM_FRAC / (1 - PLL_HEADROOM_FRAC))
+ONE = 1 << FRAC_BITS
+F32 = np.float32
+INV_SCALE = F32(2.0 ** -FRAC_BITS)
+SMEM_PER_SM = 233472  # bytes of shared memory on a Hopper SM, 1 KB reserved per resident block
+
+
+def phases(n):
+    """Negative (the first window starts in the tail), zero, near the
+    block's end, and past it (negative numerator, n_out == 0)."""
+    return {"in the tail": -ONE - 12345, "zero": 0, "near the end": (n - 3) * ONE,
+            "past the block": (n + 5) * ONE}
+
+
+@pytest.mark.parametrize("w0", [-7, -4, -1, 0, 1, 2, 3, 4, 1023, 786431])
+@pytest.mark.parametrize("misalign", [0, 1, 2, 3])
+def test_aligned_window_is_16_byte_aligned_and_covers(w0, misalign):
+    """The staged range starts and ends on 16-byte boundaries of the
+    address, contains the window, wastes at most 3 samples at each end, and
+    fits the slot."""
+    for length in (1, 4, 1036, 1038, 1049):
+        a, off, n = aligned_window(w0, length, misalign)
+        assert (a + misalign) % 4 == 0 and n % 4 == 0 and 0 <= off <= 3
+        assert a + off == w0 and a + n >= w0 + length and n - off - length <= 3
+        assert n <= slot_floats(length)
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+@pytest.mark.parametrize("inv_scale", PLL_ENDS + (1.0,))
+def test_valid_pixels_equals_the_carries_count(geometry, inv_scale):
+    """The division-free per-chunk count is min(max(n_out - p0, 0), total)
+    with n_out from resample_counts, for every chunk and every phase,
+    negative numerators included."""
+    cfg = GEOMETRIES[geometry]
+    n, inv = cfg.block_samples, round(cfg.samples_per_pixel * inv_scale * ONE)
+    total = 2 * k1.TILE
+    for phase in phases(n).values():
+        n_out, _ = tops.resample_counts(torch.tensor(phase), torch.tensor(inv), n)
+        n_out = int(n_out)
+        num = n * ONE - phase
+        for c in range(-(-cfg.max_block_pixels // total)):
+            assert valid_pixels(c * total, total, num, inv) == min(max(n_out - c * total, 0),
+                                                                   total)
+
+
+def chunk_bases(phase, inv, p0):
+    """(start, frac f32) of the window start of pixel p0, as the kernels
+    take them from the exact int64 phase."""
+    base = phase + p0 * inv
+    start = base >> FRAC_BITS
+    return start, F32(base - (start << FRAC_BITS)) * INV_SCALE
+
+
+def k1_ramp(frac, margin, inv):
+    """K1's f32 ramp of one chunk: (rel_e, rel_o, end_o) over its samples."""
+    inv_f = F32(inv) * INV_SCALE
+    delta2 = F32(2.0 * inv * 2.0 ** -FRAC_BITS - 1.0)
+    s = np.arange(k1.TILE, dtype=F32)
+    rel_e = (F32(margin) + frac) + s * delta2
+    rel_o = rel_e + inv_f
+    return rel_e, rel_o, rel_o + inv_f
+
+
+@pytest.mark.parametrize("misalign", [0, 1])
+@pytest.mark.parametrize("inv_scale", PLL_ENDS)
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_k1_staged_window_contains_every_tap(geometry, inv_scale, misalign):
+    """For every chunk with a complete pixel: each pixel's window
+    [rel, rel + inv) lies inside the two taps the kernel evaluates, and those
+    index samples inside the staged range."""
+    cfg = GEOMETRIES[geometry]
+    n, taps = cfg.block_samples, cfg.resample_taps
+    inv = round(cfg.samples_per_pixel * inv_scale * ONE)
+    margin, taps_eff = k1.k1_margin(cfg.samples_per_pixel)
+    wlen = k1.TILE + taps_eff
+    s = np.arange(k1.TILE)
+    for phase in phases(n).values():
+        num = n * ONE - phase
+        for c in range(-(-cfg.max_block_pixels // (2 * k1.TILE))):
+            if valid_pixels(c * 2 * k1.TILE, 2 * k1.TILE, num, inv) == 0:
+                continue  # not staged
+            start, frac = chunk_bases(phase, inv, c * 2 * k1.TILE)
+            a, off, cnt = aligned_window(start - margin + taps, wlen, misalign)
+            rel_e, rel_o, end_o = k1_ramp(frac, margin, inv)
+            for rel, end in ((rel_e, rel_o), (rel_o, end_o)):
+                i0 = np.clip(rel.astype(np.int32), 0, taps_eff - 2)
+                assert (np.floor(rel) >= i0).all() and (end <= i0 + 2).all()
+                assert (off + s + i0 + 1).max() < cnt
+
+
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_k1_window_fits_shared_memory(geometry):
+    """One window per thread block, without opting in to more than 48 KB,
+    and eight blocks' windows (the kernel's launch bound) fit an SM."""
+    _, taps_eff = k1.k1_margin(GEOMETRIES[geometry].samples_per_pixel)
+    window = slot_floats(k1.TILE + taps_eff) * 4
+    assert window <= 48 * 1024
+    assert 8 * (window + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("inv0", [0.5000040625330081, 0.5007410968232985, 1 / 1.5123, 1.4038,
+                                  7.3, 20.0, 60.0, 100.0])
+def test_k3_window_fits_shared_memory(inv0):
+    """group_tiles keeps a group's window within a thread block's shared
+    memory at any rate, within half of it while it groups tiles, and raises
+    where even a one-tile window does not fit."""
+    taps = int(np.ceil(inv0 * 1.02)) + 1
+    tiles = k3.group_tiles(inv0, taps)
+    assert tiles in (1, 2, 4, 8)
+    window = k3.window_bytes(inv0, taps, tiles)
+    assert window == slot_floats(k3.window_len(inv0, taps, tiles)) * 4
+    assert window <= (SMEM_PER_BLOCK // 2 if tiles > 1 else SMEM_PER_BLOCK)
+    if inv0 < 2:
+        assert tiles == k3.GROUP_TILES
+    with pytest.raises(ValueError, match="shared memory"):
+        k3.group_tiles(300.0, 307)
+
+
+@pytest.mark.parametrize("misalign", [0, 3])
+@pytest.mark.parametrize("inv_scale", PLL_ENDS)
+@pytest.mark.parametrize("geometry", list(GEOMETRIES))
+def test_k3_staged_window_contains_every_tap(geometry, inv_scale, misalign):
+    """For every group with a complete pixel: every tile's window lies in
+    the group's (the kernel's clamp to the group window never binds), and
+    every sample a pixel sums lies inside the staged range."""
+    cfg = GEOMETRIES[geometry]
+    n, taps, inv0 = cfg.block_samples, cfg.resample_taps, cfg.samples_per_pixel
+    inv = round(inv0 * inv_scale * ONE)
+    inv_f = F32(inv) * INV_SCALE
+    tiles = k3.group_tiles(inv0, taps)
+    w_in, w_grp = k3.window_len(inv0, taps), k3.window_len(inv0, taps, tiles)
+    group_pix = tiles * k3.TILE
+    r = np.arange(k3.TILE, dtype=F32)
+    for phase in phases(n).values():
+        num = n * ONE - phase
+        for g in range(-(-cfg.max_block_pixels // group_pix)):
+            if valid_pixels(g * group_pix, group_pix, num, inv) == 0:
+                continue
+            start0, _ = chunk_bases(phase, inv, g * group_pix)
+            a, off, cnt = aligned_window(start0 + taps, w_grp, misalign)
+            for t in range(tiles):
+                start, frac = chunk_bases(phase, inv, g * group_pix + t * k3.TILE)
+                d = start - start0
+                j1 = np.floor((frac + r * inv_f) + inv_f).max()
+                assert 0 <= d and j1 <= w_in - 1 and d + j1 <= w_grp - 1
+                assert off + d + j1 < cnt <= slot_floats(w_grp)
+
+
+def stage(x, a, cnt):
+    """The staged slot: x[a : a + cnt] with zeros outside x."""
+    idx = a + np.arange(cnt)
+    ok = (idx >= 0) & (idx < x.shape[0])
+    return np.where(ok, x[np.clip(idx, 0, x.shape[0] - 1)], F32(0))
+
+
+def k1_model(x, phase, inv, *, n_samples, max_pix, taps, inv_nominal, misalign):
+    """K1's tiling in numpy: one chunk a thread block, its staged aligned
+    window, the per-chunk f32 ramp and the two taps a pixel can touch."""
+    margin, taps_eff = k1.k1_margin(inv_nominal)
+    num = n_samples * ONE - phase
+    n_out = max(num // inv, 0)
+    rate = F32(float(ONE)) / F32(inv)
+    out = np.full(max_pix, np.nan, F32)
+    pix = 2 * k1.TILE
+    s = np.arange(k1.TILE)
+
+    def box(slot, off, rel, end):
+        i0 = np.clip(rel.astype(np.int32), 0, taps_eff - 2)
+
+        def term(t):
+            tf = t.astype(F32)
+            w = np.maximum(np.minimum(end, tf + F32(1)) - np.maximum(rel, tf), F32(0))
+            return w * slot[off + s + t]
+
+        return (term(i0) + term(i0 + 1)) * rate
+
+    for c in range(-(-max_pix // pix)):
+        vals = np.zeros(pix, F32)
+        lim = valid_pixels(c * pix, pix, num, inv)
+        if lim > 0:
+            start, frac = chunk_bases(phase, inv, c * pix)
+            a, off, cnt = aligned_window(start - margin + taps, k1.TILE + taps_eff, misalign)
+            slot = stage(x, a, cnt)
+            rel_e, rel_o, end_o = k1_ramp(frac, margin, inv)
+            vals[0::2], vals[1::2] = box(slot, off, rel_e, rel_o), box(slot, off, rel_o, end_o)
+            vals[lim:] = 0
+        seg = out[c * pix:(c + 1) * pix]
+        seg[:] = vals[:seg.shape[0]]
+    return out, n_out, phase + n_out * inv - n_samples * ONE
+
+
+def k3_model(x, phase, inv, *, n_samples, max_pix, taps, inv_nominal, misalign):
+    """K3's tiling in numpy: one group of tiles a thread block, its one
+    staged aligned window, each tile's f32 ramp from its own exact base, and a
+    sequential sum over the samples a pixel touches."""
+    tiles = k3.group_tiles(inv_nominal, taps)
+    w_in, w_grp = k3.window_len(inv_nominal, taps), k3.window_len(inv_nominal, taps, tiles)
+    num = n_samples * ONE - phase
+    n_out = max(num // inv, 0)
+    inv_f = F32(inv) * INV_SCALE
+    rate = F32(1) / inv_f
+    out = np.full(max_pix, np.nan, F32)
+    group_pix = tiles * k3.TILE
+    r = np.arange(k3.TILE, dtype=F32)
+    for g in range(-(-max_pix // group_pix)):
+        vals = np.zeros(group_pix, F32)
+        lim = valid_pixels(g * group_pix, group_pix, num, inv)
+        if lim > 0:
+            start0, _ = chunk_bases(phase, inv, g * group_pix)
+            a, off, cnt = aligned_window(start0 + taps, w_grp, misalign)
+            slot = stage(x, a, cnt)
+            for t in range(tiles):
+                start, frac = chunk_bases(phase, inv, g * group_pix + t * k3.TILE)
+                d = start - start0
+                pos = frac + r * inv_f
+                end = pos + inv_f
+                j0 = np.maximum(np.floor(pos).astype(np.int64), 0)
+                j1 = np.minimum(np.floor(end).astype(np.int64), min(w_in, w_grp - d) - 1)
+                acc = np.zeros(k3.TILE, F32)
+                for k in range(int((j1 - j0).max()) + 1):
+                    j = j0 + k
+                    jf = j.astype(F32)
+                    w = np.maximum(np.minimum(end, jf + F32(1)) - np.maximum(pos, jf), F32(0))
+                    inside = j <= j1
+                    acc = np.where(inside, acc + w * slot[np.where(inside, off + d + j, 0)], acc)
+                vals[t * k3.TILE:(t + 1) * k3.TILE] = acc * rate
+            vals[lim:] = 0
+        seg = out[g * group_pix:(g + 1) * group_pix]
+        seg[:] = vals[:seg.shape[0]]
+    return out, n_out, phase + n_out * inv - n_samples * ONE
+
+
+@pytest.fixture()
+def tpu_k3(monkeypatch):
+    """The TPU kernel K3 in interpret mode (tests/test_pallas.py:14-25)."""
+    import jax.experimental.pallas as pl
+    import tempestsdr_tpu.pallas.resample_kernel as rk
+
+    orig = pl.pallas_call
+    monkeypatch.setattr(rk.pl, "pallas_call", lambda *a, **k: orig(*a, **{**k, "interpret": True}))
+    return rk.box_resample_pallas
+
+
+def tpu_k1(*args, **kw):
+    """The TPU kernel K1 in interpret mode."""
+    return box_resample_strided_pallas(*args, interpret=True, **kw)
+
+
+def held(model, tpu_kernel, tpu_tol, plain, tol, inv0, phase_name, misalign, n=8192,
+         inv_scale=1.0):
+    """The model on a seeded block against the TPU kernel (interpret mode,
+    rtol = atol = tpu_tol) and the port's plain version (max abs tol):
+    carries exact against both."""
+    rng = np.random.default_rng(21)
+    taps = int(np.ceil(inv0)) + 1
+    x = np.concatenate([rng.random(taps), rng.random(n) * 1.5]).astype(F32)
+    inv = round(inv0 * inv_scale * ONE)
+    phase = phases(n)[phase_name]
+    kw = dict(n_samples=n, max_pix=int(n / inv0 * 1.02) + 2, taps=taps, inv_nominal=inv0)
+    got, n_out, new_phase = model(x, phase, inv, misalign=misalign, **kw)
+    assert not np.isnan(got).any()
+    ref, n_ref, phase_ref = tpu_kernel(jnp.asarray(x), jnp.int64(phase), jnp.int64(inv), **kw)
+    assert n_out == int(n_ref) and new_phase == int(phase_ref)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=tpu_tol, atol=tpu_tol)
+    want, n_want, phase_want = plain(torch.from_numpy(x), torch.tensor(phase), torch.tensor(inv),
+                                     **kw)
+    assert n_out == int(n_want) and new_phase == int(phase_want)
+    assert np.abs(got - want.numpy()).max() <= tol
+    if phase_name == "past the block":
+        assert n_out == 0 and not got.any()
+    else:
+        assert n_out > 0 and got[:n_out].any() and not got[n_out:].any()
+
+
+@pytest.mark.parametrize("misalign", [0, 1, 3])
+@pytest.mark.parametrize("phase_name", ["in the tail", "zero", "near the end", "past the block"])
+def test_k1_tiling_model_matches_tpu_kernel_and_plain_version(phase_name, misalign):
+    """Against the TPU kernel within 4e-4 (its tolerance against the XLA
+    form, tests/test_ops.py:249: its chunk is 4096 samples, the model's
+    1024) and the plain version within 2e-5 (K1's tolerance on the card;
+    the plain form's chunk ramp rounds the window edges differently)."""
+    held(k1_model, tpu_k1, 4e-4, tops.box_resample_strided, 2e-5, 0.5000040625330081,
+         phase_name, misalign)
+
+
+@pytest.mark.parametrize("inv_scale", PLL_ENDS)
+def test_k1_tiling_model_at_pll_ends(inv_scale):
+    held(k1_model, tpu_k1, 4e-4, tops.box_resample_strided, 2e-5, 0.5007410968232985, "zero", 2,
+         inv_scale=inv_scale)
+
+
+@pytest.mark.parametrize("misalign", [0, 1, 3])
+@pytest.mark.parametrize("phase_name", ["in the tail", "zero", "near the end", "past the block"])
+def test_k3_tiling_model_matches_tpu_kernel_and_plain_version(tpu_k3, phase_name, misalign):
+    """Against the TPU kernel and the plain version within 3e-4 (K3's
+    tolerance on the card, tests/test_pallas.py:99: the TPU kernel's fracs
+    have 24 bits and the chunked form's ramps start at each 128-pixel chunk,
+    the model's at each 256-pixel tile)."""
+    held(k3_model, tpu_k3, 3e-4, tops.box_resample_block_chunked, 3e-4, 0.5000040625330081,
+         phase_name, misalign)
+
+
+@pytest.mark.parametrize("rate", [1.99876, 1.5123, 0.71234, 1 / 7.3])
+def test_k3_tiling_model_at_any_rate(tpu_k3, rate):
+    held(k3_model, tpu_k3, 3e-4, tops.box_resample_block_chunked, 3e-4, 1 / rate, "zero", 1)

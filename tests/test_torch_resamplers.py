@@ -30,7 +30,7 @@ from tempestsdr_tpu_torch.kernels import (
     fused_demod_resample_cuda,
     fused_demod_resample_u16_cuda,
 )
-from tempestsdr_tpu_torch.kernels.chunked_resample import TILE, window_len
+from tempestsdr_tpu_torch.kernels.chunked_resample import TILE, group_tiles, window_len
 from tempestsdr_tpu_torch.kernels.fused_demod_resample import fused_demod_resample
 
 RATES = (1.99876, 1.5123, 0.71234)  # as tests/test_pallas.py:79
@@ -232,12 +232,21 @@ def test_k3_window_covers_pll_headroom(inv0):
     """Every pixel window of a 256-pixel tile, [pos, pos + inv) with
     pos = frac + r*inv, lies inside K3/K4's w_in-sample window at the PLL
     headroom's extreme rates, so the kernels' per-pixel sample range never
-    runs past the window."""
+    runs past the window; and in K3's window of a group of tiles, which
+    starts at the first tile's, every tile's own window start plus its
+    pixels' reach stays inside the group's w_grp samples."""
     taps = int(np.ceil(inv0 * 1.02)) + 1
     w_in = window_len(inv0, taps)
+    tiles = group_tiles(inv0, taps)
+    w_grp = window_len(inv0, taps, tiles)
+    assert tiles == 8 and w_grp >= w_in
     r = np.arange(TILE)
     for f in (1 - PLL_HEADROOM_FRAC, 1 + PLL_HEADROOM_FRAC / (1 - PLL_HEADROOM_FRAC)):
         inv = inv0 * f
         for frac in (0.0, 0.999999):
             end = frac + r * inv + inv
             assert np.floor(end).max() <= w_in - 1
+            for t in range(tiles):
+                # tile t's window starts d samples into the group's, frac_t into a sample
+                d, frac_t = divmod(frac + t * TILE * inv, 1.0)
+                assert d + np.floor(frac_t + r * inv + inv).max() <= w_grp - 1
