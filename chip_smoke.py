@@ -9,19 +9,23 @@
    plain PyTorch version on the card, at the shapes the streaming step
    gives it at the 64 MS/s and 8 MS/s geometries, over three streamed
    blocks at three rates: K1 (strided), K2 and K2' (fused decode + demod +
-   resample, uint8 and int8), K3 and K4 (chunked);
-   K1 and K3 also on an envelope that starts 4 bytes past a 16-byte
+   resample, uint8 and int8), K3 and K4 (chunked), and K4's window gather
+   (exactly);
+   every kernel also on an input that starts 4 bytes past a 16-byte
    boundary, on a phase past the block (n_out == 0) and on a phase in the
-   tail, where their window staging takes its other branches;
+   tail, where the window staging takes its other branches;
 3. times each kernel (CUDA events, L2 flushed before each launch) beside
-   its plain version and its memory/compute bound, K2 and K2' in turns; K1
-   and K3 also warm (the envelope just written by a torch.cat, as in the
-   step) and as one of eight launches in a row; and the floors those times
-   are read against: an empty launch, and a float4 copy of the same bytes;
+   its plain version and its memory/compute bound, K2 and K2' in turns;
+   also warm (the input just written, as in the step) and as one of eight
+   launches in a row; K4 alone, its gather kernel, the gather's plain
+   version and the two launches together; and the floors those times are
+   read against: an empty launch, and a float4 copy of each kernel's own
+   bytes;
 4. runs Session.run end to end on a synthetic uint8 source: the default
    path at 64 MS/s (K == 1) and 8 MS/s (K == 4), and resampler="fused",
    "pallas" and "pallas_windows" at 64 MS/s, checking frames,
-   autocorrelation plots and one launch of the path's kernel per block; K2'
+   autocorrelation plots and one launch of each of the path's kernels per
+   block (the gather and K4 for "pallas_windows"); K2'
    streams the same blocks through its function entry;
 5. cross-checks the card's step against the CPU step at 8 MS/s for six
    configurations, and profiles steady default blocks;
@@ -51,6 +55,8 @@ from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
     box_resample_pallas_cuda,
     box_resample_pallas_windows_cuda,
     gather_windows,
+    gather_windows_plain,
+    k4_window_len,
     windows_resample_launch,
 )
 from tempestsdr_tpu_torch.kernels.fused_demod_resample import (  # noqa: E402
@@ -131,11 +137,12 @@ def check_kernels(cfg):
     """Every kernel against its plain version over three streamed blocks at
     rate scales 1, 1.001 and 1/1.001: carries exact; K1 and K2/K2' pixels
     within K1_TOL and K2's envelope exact; K3 and K4 within K3_TOL of the
-    chunked form. Each plain version's carries feed the next block.
+    chunked form; the gather kernel's windows and fracs exactly its plain
+    version's. Each plain version's carries feed the next block.
     Returns the max abs pixel error per kernel."""
     rng = np.random.default_rng(7)
     taps = cfg.resample_taps
-    errs = dict.fromkeys(("K1", "K2", "K2'", "K3", "K4"), 0.0)
+    errs = dict.fromkeys(("K1", "K2", "K2'", "K3", "K4", "gather"), 0.0)
 
     def held(name, got, want, tol):
         (a, na, pa), (b, nb, pb) = got, want
@@ -159,6 +166,7 @@ def check_kernels(cfg):
             held("K4", call(box_resample_pallas_windows_cuda, cfg, x, phase, inv), chunked,
                  K3_TOL)
             del chunked
+            held_gather(cfg, x, phase, inv)
             phase, tail = strided[2], x[-taps:]
         for dtype in (torch.uint8, torch.int8):
             phase = torch.zeros((), dtype=torch.int64, device=DEV)
@@ -175,13 +183,27 @@ def check_kernels(cfg):
     return errs
 
 
+def held_gather(cfg, x, phase, inv):
+    """The gather kernel's windows and fracs against its plain version's:
+    equal, rows of k4_window_len samples."""
+    kw = dict(max_pix=cfg.max_block_pixels, taps=cfg.resample_taps,
+              inv_nominal=cfg.samples_per_pixel)
+    got, want = gather_windows(x, phase, inv, **kw), gather_windows_plain(x, phase, inv, **kw)
+    torch.cuda.synchronize()
+    assert got[0].shape == (-(-cfg.max_block_pixels // 256),
+                            k4_window_len(cfg.samples_per_pixel, cfg.resample_taps))
+    assert torch.equal(got[0], want[0]), "gather: windows differ from the plain version's"
+    assert torch.equal(got[1], want[1]), "gather: fracs differ from the plain version's"
+
+
 def check_edges(cfg):
-    """K1 and K3 against their plain versions where their window staging
-    takes its other branches: an envelope that starts 4 bytes past a
-    16-byte boundary (a view), a phase past the block (negative numerator:
+    """Every kernel against its plain version where the window staging
+    takes its other branches: an input that starts 4 bytes past a 16-byte
+    boundary (a view), a phase past the block (negative numerator:
     n_out == 0 and every pixel 0) and a phase in the tail (the first window
-    starts before the envelope). Carries exact, pixels within K1_TOL and
-    K3_TOL. Returns the max abs pixel error per kernel."""
+    starts before the input). Carries exact, pixels within K1_TOL and
+    K3_TOL, K2's envelope and the gather exact. Returns the max abs pixel
+    error per kernel."""
     rng = np.random.default_rng(9)
     n, taps = cfg.block_samples, cfg.resample_taps
     x_pad = torch.cat([torch.zeros(1, device=DEV),
@@ -189,25 +211,42 @@ def check_edges(cfg):
     x = x_pad[1:].clone()
     assert x.data_ptr() % 16 == 0 and x_pad[1:].data_ptr() % 16 == 4
     inv = rate_inv(cfg, 1.0)
-    errs = {"K1": 0.0, "K3": 0.0}
-    for name, (xe, ph) in {"unaligned": (x_pad[1:], 0), "negative num": (x, (n + 5) << 40),
-                           "phase in the tail": (x, -(1 << 40) - 12345)}.items():
+    raw_pad = torch.from_numpy(rng.integers(0, 256, size=2 * n + 4, dtype=np.uint8)).to(DEV)
+    raw = raw_pad[4:].clone()
+    assert raw.data_ptr() % 16 == 0 and raw_pad[4:].data_ptr() % 16 == 4
+    tail = torch.from_numpy(rng.random(taps, dtype=np.float32) * 1.5).to(DEV)
+    errs = dict.fromkeys(("K1", "K2", "K2'", "K3", "K4"), 0.0)
+
+    def held(kid, name, got, want, tol):
+        (a, na, pa), (b, nb, pb) = got, want
+        torch.cuda.synchronize()
+        assert int(na) == int(nb) and int(pa) == int(pb), (kid, name, int(na), int(nb))
+        err = (a - b).abs().max().item()
+        assert err <= tol, f"{kid} ({name}) differs from its plain version by {err}"
+        if name == "negative num":
+            assert int(na) == 0 and not a.any(), (kid, name)
+        else:
+            assert int(na) > 0 and a[:int(na)].any(), (kid, name)
+        errs[kid] = max(errs[kid], err)
+
+    for name, (off, ph) in {"unaligned": (True, 0), "negative num": (False, (n + 5) << 40),
+                            "phase in the tail": (False, -(1 << 40) - 12345)}.items():
         phase = torch.tensor(ph, dtype=torch.int64, device=DEV)
+        xe = x_pad[1:] if off else x
         for kid, fn, plain, tol in (
                 ("K1", box_resample_strided_cuda, box_resample_strided, K1_TOL),
-                ("K3", box_resample_pallas_cuda, box_resample_block_chunked, K3_TOL)):
-            a, na, pa = call(fn, cfg, xe, phase, inv)
-            b, nb, pb = call(plain, cfg, xe, phase, inv)
-            torch.cuda.synchronize()
-            assert int(na) == int(nb) and int(pa) == int(pb), (kid, name, int(na), int(nb))
-            err = (a - b).abs().max().item()
-            assert err <= tol, f"{kid} ({name}) differs from its plain version by {err}"
-            if name == "negative num":
-                assert int(na) == 0 and not a.any(), (kid, name)
-            else:
-                assert int(na) > 0 and a[:int(na)].any(), (kid, name)
-            errs[kid] = max(errs[kid], err)
-            del a, b
+                ("K3", box_resample_pallas_cuda, box_resample_block_chunked, K3_TOL),
+                ("K4", box_resample_pallas_windows_cuda, box_resample_block_chunked, K3_TOL)):
+            held(kid, name, call(fn, cfg, xe, phase, inv), call(plain, cfg, xe, phase, inv), tol)
+        held_gather(cfg, xe, phase, inv)
+        for dtype in (torch.uint8, torch.int8):
+            re = (raw_pad[4:] if off else raw).view(dtype)
+            env, *plain = call(fused_demod_resample, cfg, re, tail, phase, inv)
+            for kid, fn in (("K2", fused_demod_resample_cuda),
+                            ("K2'", fused_demod_resample_u16_cuda)):
+                got_env, *got = call(fn, cfg, re, tail, phase, inv)
+                held(kid, name, got, plain, K1_TOL)
+                assert torch.equal(got_env, env), f"{kid} ({name}): envelope not bit-exact"
     return errs
 
 
@@ -248,25 +287,36 @@ def each_of(fn, k=8, reps=30):
     return (time_launches(many, reps, flush=False) - one) / (k - 1)
 
 
+def copy_floor(n_in, n_out):
+    """The float4 copy kernel reading n_in floats and writing n_out floats:
+    device ms flushed, warm (the input just written) and as one of eight in
+    a row, and the bytes it moves (whole 16-byte pieces)."""
+    src, dst = torch.rand(n_in, device=DEV), torch.empty(n_out, device=DEV)
+    copy = lambda: launch_copy_floor(src, dst)  # noqa: E731
+    return dict(ms=time_launches(copy),
+                warm_ms=time_launches(lambda s: launch_copy_floor(s, dst), warm_input=src.clone),
+                each_of_8_ms=each_of(copy), bytes=4 * n_in // 16 * 16 + 4 * n_out // 16 * 16)
+
+
 def measure_floors(cfg):
-    """What K1's and K3's times at this geometry are read against: an empty
+    """What the kernels' times at this geometry are read against: an empty
     kernel through the same ctypes route (the event pair and a launch), and
-    a grid-stride float4 copy kernel that reads 4*(n + taps) bytes and
-    writes 4*max_pix bytes, flushed and warm as the kernels are timed. The
-    copy computes nothing of K1's function; it is no library call."""
+    a grid-stride float4 copy kernel that reads and writes each kernel's own
+    bytes, flushed, warm and one of eight as the kernels are timed: K1's and
+    K3's (4*(n + taps) in, 4*max_pix out), K2's (2n in, 4n + 4*max_pix out),
+    K4's (the windows and fracs in, 4*max_pix out) and the gather's
+    (4*(n + taps) in, the windows out). The copy computes nothing of any
+    kernel's function; it is no library call."""
     n, mp, taps = cfg.block_samples, cfg.max_block_pixels, cfg.resample_taps
-    tail, body = torch.zeros(taps, device=DEV), torch.rand(n, device=DEV)
-    x = torch.cat([tail, body])
-    dst = torch.empty(mp, device=DEV)
+    n_tiles, w_in = -(-mp // 256), k4_window_len(cfg.samples_per_pixel, taps)
     noop = lambda: launch_noop(DEV)  # noqa: E731
-    copy = lambda: launch_copy_floor(x, dst)  # noqa: E731
+    k1 = copy_floor(n + taps, mp)
     return dict(
         noop_ms=time_launches(noop), noop_each_of_8_ms=each_of(noop),
-        copy_ms=time_launches(copy),
-        copy_warm_ms=time_launches(lambda xw: launch_copy_floor(xw, dst),
-                                   warm_input=lambda: torch.cat([tail, body])),
-        copy_each_of_8_ms=each_of(copy),
-        copy_bytes=4 * (n + taps) // 16 * 16 + 4 * mp // 16 * 16)
+        copy_ms=k1["ms"], copy_warm_ms=k1["warm_ms"], copy_each_of_8_ms=k1["each_of_8_ms"],
+        copy_bytes=k1["bytes"],
+        K2=copy_floor(n // 2, n + mp), K4=copy_floor(n_tiles * w_in + n_tiles, mp),
+        gather=copy_floor(n + taps, n_tiles * w_in))
 
 
 def bound(nbytes, flops):
@@ -280,7 +330,10 @@ def bound(nbytes, flops):
 def measure_kernels(cfg):
     """Each kernel's device time beside its plain version's and its bound,
     at the step's shapes on one block of this geometry. K2 and K2' are
-    timed in turns (K2, K2', K2', K2) for their A/B. Counts per block: each
+    timed in turns (K2, K2', K2', K2) for their A/B. Every kernel is also
+    timed warm (its input just written: the envelope by a torch.cat, the raw
+    block by a copy, K4's windows by the gather kernel) and as one of eight
+    launches in a row. Counts per block: each
     input read once, each output written once (carries: 2 int64 in, int32 +
     int64 out); operations: the box filter's per-pixel overlap weights
     (min, max, sub, max) and multiply-add over the resample_taps samples a
@@ -305,16 +358,20 @@ def measure_kernels(cfg):
     ab = [time_launches(f) for f in (k2, k2p, k2p, k2)]
     fused_bound = bound(2 * n + 4 * taps + 4 * n + 4 * mp + carries, 7 * n + resample_flops)
     fused_plain = time_launches(lambda: call(fused_demod_resample, cfg, raw, tail, phase, inv))
-    out["K2"] = dict(ms=min(ab[0], ab[3]), ms_turns=[ab[0], ab[3]], plain_ms=fused_plain,
-                     **fused_bound)
-    out["K2'"] = dict(ms=min(ab[1], ab[2]), ms_turns=[ab[1], ab[2]], plain_ms=fused_plain,
-                      **fused_bound)
+    for kid, fn, turns in (("K2", fused_demod_resample_cuda, [ab[0], ab[3]]),
+                           ("K2'", fused_demod_resample_u16_cuda, [ab[1], ab[2]])):
+        out[kid] = dict(
+            ms=min(turns), ms_turns=turns,
+            ms_warm=time_launches(lambda r, fn=fn: call(fn, cfg, r, tail, phase, inv),
+                                  warm_input=raw.clone),
+            ms_each_of_8=each_of(lambda fn=fn: call(fn, cfg, raw, tail, phase, inv)),
+            plain_ms=fused_plain, **fused_bound)
 
     resample_bound = bound(4 * (n + taps) + 4 * mp + carries, resample_flops)
     body = x[taps:].clone()
     fresh = lambda: torch.cat([tail, body])  # noqa: E731
 
-    def in_step(fn):  # the extra timings of K1 and K3: what a launch in the step pays
+    def in_step(fn):  # what a launch in the step pays
         return dict(
             ms_warm=time_launches(lambda xw: call(fn, cfg, xw, phase, inv), warm_input=fresh),
             ms_each_of_8=each_of(lambda: call(fn, cfg, x, phase, inv)))
@@ -330,13 +387,28 @@ def measure_kernels(cfg):
         ms=time_launches(lambda: call(box_resample_pallas_cuda, cfg, x, phase, inv)),
         **in_step(box_resample_pallas_cuda),
         plain_ms=chunked_plain, **resample_bound)
+    gather_kw = dict(max_pix=mp, taps=taps, inv_nominal=cfg.samples_per_pixel)
+    k4 = lambda w, f: windows_resample_launch(w, f, phase, inv, n_samples=n,  # noqa: E731
+                                              max_pix=mp)
     out["K4"] = dict(
-        ms=time_launches(lambda: windows_resample_launch(windows, fracs, phase, inv,
-                                                         n_samples=n, max_pix=mp)),
+        ms=time_launches(lambda: k4(windows, fracs)),
+        ms_warm=time_launches(lambda wf: k4(*wf),
+                              warm_input=lambda: gather_windows(x, phase, inv, **gather_kw)),
+        ms_each_of_8=each_of(lambda: k4(windows, fracs)),
         wrapper_ms=time_launches(
             lambda: call(box_resample_pallas_windows_cuda, cfg, x, phase, inv)),
+        wrapper_plain_gather_ms=time_launches(
+            lambda: k4(*gather_windows_plain(x, phase, inv, **gather_kw))),
         plain_ms=chunked_plain, windows_shape=list(windows.shape),
         **bound(4 * windows.numel() + 4 * fracs.numel() + 4 * mp + carries, resample_flops))
+    gather = lambda xe: gather_windows(xe, phase, inv, **gather_kw)  # noqa: E731
+    out["gather"] = dict(
+        ms=time_launches(lambda: gather(x)), ms_warm=time_launches(gather, warm_input=fresh),
+        ms_each_of_8=each_of(lambda: gather(x)),
+        plain_ms=time_launches(lambda: gather_windows_plain(x, phase, inv, **gather_kw)),
+        # per row: an int64 multiply-add, shift, clip and the frac's two f32 operations
+        **bound(4 * (n + taps) + 2 * 8 + 4 * windows.numel() + 4 * fracs.numel(),
+                6 * fracs.numel()))
     return out
 
 
@@ -387,10 +459,11 @@ def warm_up(cfg, raster, params):
     Session(cfg, params, ReplayU8(cfg, raster, n), device=DEV).run(max_blocks=n)
 
 
-def run_session(name, cfg, n_blocks, params=Params(), kernel="box_resample_strided_cuda"):
+def run_session(name, cfg, n_blocks, params=Params(), kernels_run=("box_resample_strided_cuda",)):
     """One Session.run over n_blocks after a warm-up session. Launch counts
-    are zeroed just before the timed run and read just after: `kernel`
-    must have launched once per block and no other kernel at all."""
+    are zeroed just before the timed run and read just after: each of
+    `kernels_run` must have launched once per block and no other kernel at
+    all."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     warm_up(cfg, raster, params)
     src = ReplayU8(cfg, raster, n_blocks)
@@ -409,7 +482,7 @@ def run_session(name, cfg, n_blocks, params=Params(), kernel="box_resample_strid
     cc = float(np.corrcoef(frames[0].ravel(), expected_frame(cfg, raster).ravel())[0, 1])
     assert cc > CORR_MIN, f"{name}: frame correlation {cc}"
     assert plots, f"{name}: no autocorrelation plots"
-    assert launches == {k: n_blocks if k == kernel else 0 for k in launches}, (name, launches)
+    assert launches == {k: n_blocks if k in kernels_run else 0 for k in launches}, (name, launches)
     row = dict(path=name, resampler=params.resampler, blocks=n_blocks, frames=len(frames),
                plots=len(plots), corr=cc, per_block_ms=dt / n_blocks * 1e3,
                msps=cfg.block_samples * n_blocks / dt / 1e6, launches=launches)
@@ -535,6 +608,9 @@ KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
            "tempestsdr_tpu/pallas/resample_kernel.py:35"),
     "K4": (box_resample_pallas_windows_cuda, "chunked_resample.cu",
            "tempestsdr_tpu/pallas/resample_kernel.py:58"),
+    # K4's input gather, which the TPU wrapper left to XLA
+    "gather": (gather_windows, "chunked_resample.cu",
+               "tempestsdr_tpu/pallas/resample_kernel.py:91"),
 }
 
 
@@ -552,7 +628,8 @@ def main():
     torch.cuda.synchronize()
     print("max_abs_err " + json.dumps(errs))
     edges = {name: check_edges(cfg) for name, cfg in GEOMETRIES.items()}
-    print("max_abs_err (unaligned, negative num, phase in the tail) " + json.dumps(edges))
+    print("max_abs_err (unaligned, negative num, phase in the tail; gather exact) "
+          + json.dumps(edges))
     for name, e in edges.items():
         for kid, err in e.items():
             errs[name][kid] = max(errs[name][kid], err)
@@ -567,8 +644,10 @@ def main():
     k4_row = run_session("default 8MS/s", GEOMETRIES["8MS/s"], 4)
     assert k4_row["frames"] > k4_row["blocks"], k4_row  # several frames per block
     for kid, resampler in (("K2", "fused"), ("K3", "pallas"), ("K4", "pallas_windows")):
+        ran = (kid, "gather") if kid == "K4" else (kid,)
         rows[kid] = run_session(f"{resampler} 64MS/s", g64, 8, Params(resampler=resampler),
-                                KERNELS[kid][0].__name__)
+                                tuple(KERNELS[k][0].__name__ for k in ran))
+    rows["gather"] = rows["K4"]
     launches = {kid: row["launches"][KERNELS[kid][0].__name__] for kid, row in rows.items()}
     launches["K2'"] = stream_k2_u16(g64, 8)
     print("step on the card vs on the CPU (8MS/s, 3 blocks), frames max abs diff "
@@ -585,8 +664,11 @@ def main():
             replaces=replaces, launches=launches[kid],
             max_abs_err=max(e[kid] for e in errs.values()), ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None))
-        if "ms_warm" in p:  # K1 and K3
-            kern[-1].update(ms_warm=p["ms_warm"], ms_each_of_8=p["ms_each_of_8"])
+        kern[-1].update(ms_warm=p["ms_warm"], ms_each_of_8=p["ms_each_of_8"])
+        if kid == "K4":
+            g = perf["64MS/s"]["gather"]
+            kern[-1].update(gather_ms=g["ms"], gather_plain_ms=g["plain_ms"],
+                            wrapper_ms=p["wrapper_ms"])
     print(f"card: {smi}")
     print(json.dumps({"floors": floors}))
     print(json.dumps({"kernels": kern}))

@@ -20,13 +20,15 @@
 // its end read as 0, as the TPU wrapper's zero padding gave). Its fracs
 // are f32, formed in the kernel from the exact int64 residual; the TPU
 // kernel's 24-bit fixed-point fracs were a scalar-memory constraint of the
-// TPU and are gone. K4 takes the windows already gathered by plain torch
-// indexing (windows f32[n_tiles, w_in], fracs f32[n_tiles], as the XLA
-// gather fed the TPU kernel) and does the weights and the reduction.
+// TPU and are gone. K4 takes the windows already gathered (windows
+// f32[n_tiles, w_in], fracs f32[n_tiles], as the XLA gather fed the TPU
+// kernel) and does the weights and the reduction; gather_windows_kernel,
+// also here, is that gather as one launch.
 //
 // Bound on this card: memory. K3 reads x_ext once and writes the pixels
 // once (about 9.6 MB per 64 MS/s block, ~2.9 us at 3.35 TB/s); K4 reads the
-// windows (3.4 MB) and writes the pixels (6.4 MB). The TPU kernel evaluated
+// windows (3.4 MB) and writes the pixels (6.4 MB); the gather reads x_ext
+// (3.1 MB) and writes the windows. The TPU kernel evaluated
 // all w_in (136) window samples for every pixel: ~1.3 GFLOP per 64 MS/s
 // block, compute-bound here (~20 us at the f32 rate). A pixel's window
 // [pos, pos + inv) touches only the samples floor(pos) .. floor(pos + inv),
@@ -64,10 +66,30 @@
 // frac come from the exact int64 base and pos restarts at every tile, so
 // every pixel is what a one-tile-per-block kernel gives, bit for bit.
 //
-// Design of K4: one thread block per 256-pixel tile, one thread per pixel;
-// it reads its window row straight from device memory (each row is
-// contiguous and read by all 256 threads of its block, so it comes from
-// device memory about once).
+// Design of K4: K3's, on rows instead of a stretch of x_ext. One thread
+// block per group of `tiles` consecutive tiles (8, which is also the TPU
+// kernel's own grouping; fewer where shared memory asks), so 784 and 449
+// blocks in one wave where one tile per block made 6,267. The wrapper pads
+// w_in to a multiple of 4 samples, so every row starts on a 16-byte
+// boundary and a group's rows are one contiguous stretch of `windows`,
+// staged once with the same 16-byte asynchronous copies (checked loads for
+// the last, partial group). Four consecutive pixels of one tile per thread
+// and step, one 16-byte store; pixels masked by the per-group count, and a
+// group of complete pixels (nearly all) takes the same loop compiled with
+// no masks; one thread of block 0 writes the carries while the copies are
+// in flight; no barrier waits on the division. The padding columns hold the
+// envelope's next samples or 0 and no complete pixel reaches them (its
+// window ends inside the unpadded w_in at any rate within the wrapper's 2 %
+// slack).
+//
+// Design of the gather: one thread per 16-byte piece of `windows`, flat over
+// all rows (row = piece / (w_in / 4)): each thread forms its row's exact
+// int64 base, start and clipped first sample idx0 = clamp(start + taps, 0,
+// x_len), reads four consecutive samples of x_ext (0 past its end, as the
+// plain form's zero padding gives; neighbouring threads read neighbouring
+// 16 bytes) and stores them as one float4; the thread of a row's first piece
+// also writes the row's frac with the clip folded in. No padded copy of
+// x_ext and no index matrix.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +98,11 @@
 
 namespace {
 
-constexpr int kTileP = 256;  // pixels per tile: the unit of the f32 ramp (and K4's thread block)
+constexpr int kTileP = 256;  // pixels per tile: the unit of the f32 ramp
 constexpr int kThreads = 256;  // K3's
+constexpr int kWinThreads = 256;  // K4's
+constexpr int kMaxGroup = 8;  // tiles per group at most (K4's staged fracs)
+constexpr int kGatherThreads = 128;
 constexpr int kFracBits = 40;
 constexpr float kInvScale = 1.0f / (float)(1LL << kFracBits);
 
@@ -109,12 +134,6 @@ __device__ __forceinline__ float box_sum(const float* win, int w_in, float pos, 
     acc = __fadd_rn(acc, __fmul_rn(w, win[j]));
   }
   return acc;
-}
-
-__device__ __forceinline__ void store_pixel(float* out, long long max_pix, long long n_out,
-                                            float acc, float rate) {
-  const long long p = (long long)blockIdx.x * kTileP + threadIdx.x;
-  if (p < max_pix) out[p] = p < n_out ? __fmul_rn(acc, rate) : 0.0f;
 }
 
 __global__ void __launch_bounds__(kThreads, 8)
@@ -168,22 +187,105 @@ chunked_resample_kernel(const float* __restrict__ x, long long x_len,
   }
 }
 
-__global__ void __launch_bounds__(kTileP)
+// K4's pixels of one group from its staged rows `grp` and fracs: four
+// consecutive pixels of one tile per thread and step, one 16-byte store.
+// kMasked: only pixels below `lim` (and max_pix) are computed, the others
+// store 0; a group with lim == 0 was not staged and is not read.
+template <bool kMasked>
+__device__ __forceinline__ void group_pixels(const float* grp, const float* s_frac, int w_in,
+                                             float inv_f, float rate, int group_pix, int lim,
+                                             float* __restrict__ out, long long p0,
+                                             long long max_pix) {
+  for (int q0 = 4 * threadIdx.x; q0 < group_pix; q0 += 4 * kWinThreads) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (!kMasked || (q0 < lim && p0 + q0 < max_pix)) {
+      const int tl = q0 / kTileP;
+      const float frac = s_frac[tl];
+      const float* win = grp + tl * w_in;
+      const int r0 = q0 & (kTileP - 1);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (!kMasked || q0 + u < lim) {
+          const float pos = __fadd_rn(frac, __fmul_rn((float)(r0 + u), inv_f));
+          v[u] = __fmul_rn(box_sum(win, w_in, pos, inv_f), rate);
+        }
+      }
+    }
+    if (kMasked)
+      tsdr::store4(out, p0 + q0, max_pix, v);
+    else
+      *reinterpret_cast<float4*>(out + p0 + q0) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+__global__ void __launch_bounds__(kWinThreads, 8)
 windows_resample_kernel(const float* __restrict__ windows, const float* __restrict__ fracs,
                         const long long* __restrict__ phase_p,
                         const long long* __restrict__ inv_p, long long n_samples,
                         float* __restrict__ out, int* __restrict__ n_out_p,
-                        long long* __restrict__ new_phase_p, long long max_pix, int w_in) {
-  __shared__ long long s_n_out;
-  const long long inv = *inv_p;
-  if (threadIdx.x == 0) s_n_out = block_carries(*phase_p, inv, n_samples, n_out_p, new_phase_p);
-  __syncthreads();
+                        long long* __restrict__ new_phase_p, long long max_pix,
+                        long long n_tiles, int w_in, int tiles) {
+  extern __shared__ __align__(16) float slot[];  // the group's rows
+  __shared__ float s_frac[kMaxGroup];
+  const long long phase = *phase_p;
+  const long long inv = *inv_p;  // > 0
+  const long long num = (n_samples << kFracBits) - phase;
+  const int tid = threadIdx.x;
+  const int group_pix = tiles * kTileP;
 
-  const float* win = windows + (long long)blockIdx.x * w_in;
+  const long long p0 = (long long)blockIdx.x * group_pix;
+  const int lim = tsdr::valid_pixels(p0, group_pix, num, inv);
+  const long long t0 = (long long)blockIdx.x * tiles;
+  const long long row0 = t0 * w_in;  // the group's rows: one stretch of `windows`
+  if (lim > 0) {
+    tsdr::stage_window(slot, windows, n_tiles * w_in, row0, tiles * w_in, tid, kWinThreads);
+    if (tid < tiles && t0 + tid < n_tiles) s_frac[tid] = fracs[t0 + tid];
+  }
+
+  if (blockIdx.x == 0 && tid == 0) block_carries(phase, inv, n_samples, n_out_p, new_phase_p);
+
   const float inv_f = __fmul_rn(__ll2float_rn(inv), kInvScale);
   const float rate = __fdiv_rn(1.0f, inv_f);
-  const float pos = __fadd_rn(fracs[blockIdx.x], __fmul_rn((float)threadIdx.x, inv_f));
-  store_pixel(out, max_pix, s_n_out, box_sum(win, w_in, pos, inv_f), rate);
+  const float* grp = slot + tsdr::window_offset(windows, row0);
+
+  tsdr::cp_async_wait_all();
+  __syncthreads();
+
+  // a whole group of complete pixels (all but the group n_out falls into
+  // and those past it) takes the loop with no masks
+  if (lim == group_pix && p0 + group_pix <= max_pix)
+    group_pixels<false>(grp, s_frac, w_in, inv_f, rate, group_pix, lim, out, p0, max_pix);
+  else
+    group_pixels<true>(grp, s_frac, w_in, inv_f, rate, group_pix, lim, out, p0, max_pix);
+}
+
+__global__ void __launch_bounds__(kGatherThreads)
+gather_windows_kernel(const float* __restrict__ x, long long x_len,
+                      const long long* __restrict__ phase_p,
+                      const long long* __restrict__ inv_p, float* __restrict__ windows,
+                      float* __restrict__ fracs, long long pieces, int taps, int w_in) {
+  const long long i = (long long)blockIdx.x * kGatherThreads + threadIdx.x;
+  if (i >= pieces) return;
+  const int w4 = w_in >> 2;  // w_in is a multiple of 4
+  const long long t = i / w4;
+  const int c = (int)(i - t * w4);
+
+  // the tile's exact base, and its window start clipped into x_ext as if
+  // zero-padded by w_in samples, with the clip folded into the frac
+  const long long base = *phase_p + (t * kTileP) * *inv_p;
+  const long long start = base >> kFracBits;
+  const long long idx0 = min(max(start + taps, 0LL), x_len);
+  if (c == 0) {
+    const float frac = __fmul_rn(__ll2float_rn(base - (start << kFracBits)), kInvScale);
+    fracs[t] = __fadd_rn(frac, __ll2float_rn(start + taps - idx0));
+  }
+  const long long j = idx0 + 4 * c;
+  float4 v;
+  v.x = j < x_len ? x[j] : 0.0f;
+  v.y = j + 1 < x_len ? x[j + 1] : 0.0f;
+  v.z = j + 2 < x_len ? x[j + 2] : 0.0f;
+  v.w = j + 3 < x_len ? x[j + 3] : 0.0f;
+  reinterpret_cast<float4*>(windows)[i] = v;
 }
 
 }  // namespace
@@ -213,15 +315,39 @@ extern "C" int tsdr_chunked_resample(const float* x, long long x_len, const long
   return (int)cudaGetLastError();
 }
 
-// Launches K4 on `stream` over n_tiles = ceil(max_pix / 256) window rows.
+// Launches K4 on `stream` over n_tiles = ceil(max_pix / 256) window rows of
+// w_in samples, one thread block per group of `tiles` rows. `out` must be
+// 16-byte aligned (a fresh torch allocation is).
 extern "C" int tsdr_windows_resample(const float* windows, const float* fracs,
                                      const long long* phase, const long long* inv,
                                      long long n_samples, float* out, int* n_out,
                                      long long* new_phase, long long max_pix, int w_in,
-                                     void* stream) {
-  if (max_pix <= 0 || w_in <= 0) return 1;
-  const long long blocks = (max_pix + kTileP - 1) / kTileP;
-  windows_resample_kernel<<<(unsigned)blocks, kTileP, 0, (cudaStream_t)stream>>>(
-      windows, fracs, phase, inv, n_samples, out, n_out, new_phase, max_pix, w_in);
+                                     int tiles, void* stream) {
+  if (max_pix <= 0 || w_in <= 0 || tiles <= 0 || tiles > kMaxGroup || ((uintptr_t)out & 15) != 0)
+    return 1;
+  const long long n_tiles = (max_pix + kTileP - 1) / kTileP;
+  const long long groups = (n_tiles + tiles - 1) / tiles;
+  const size_t smem = (size_t)tsdr::slot_floats(tiles * w_in) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        windows_resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  windows_resample_kernel<<<(unsigned)groups, kWinThreads, smem, (cudaStream_t)stream>>>(
+      windows, fracs, phase, inv, n_samples, out, n_out, new_phase, max_pix, n_tiles, w_in, tiles);
+  return (int)cudaGetLastError();
+}
+
+// Launches the gather of K4's inputs on `stream`: windows f32[n_tiles, w_in]
+// and fracs f32[n_tiles] from x_ext. w_in must be a multiple of 4 and
+// `windows` 16-byte aligned.
+extern "C" int tsdr_gather_windows(const float* x, long long x_len, const long long* phase,
+                                   const long long* inv, float* windows, float* fracs,
+                                   long long n_tiles, int taps, int w_in, void* stream) {
+  if (n_tiles <= 0 || w_in <= 0 || (w_in & 3) != 0 || ((uintptr_t)windows & 15) != 0) return 1;
+  const long long pieces = n_tiles * (w_in >> 2);
+  const long long blocks = (pieces + kGatherThreads - 1) / kGatherThreads;
+  gather_windows_kernel<<<(unsigned)blocks, kGatherThreads, 0, (cudaStream_t)stream>>>(
+      x, x_len, phase, inv, windows, fracs, pieces, taps, w_in);
   return (int)cudaGetLastError();
 }

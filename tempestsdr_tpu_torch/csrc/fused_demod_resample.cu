@@ -29,25 +29,50 @@
 // unfused demod kernels + K1. The arithmetic is a few operations per
 // sample and pixel, far below the f32 rate.
 //
-// Design: one thread block of 256 threads per tile of 1024 samples. The
-// tile decodes its window (1024 + taps_eff samples, which covers the whole
-// PLL headroom, so no fallback branch) into shared memory, and, separately,
-// the 1024 envelope samples it owns, which it writes to env: each env
-// sample is written exactly once, by its owner, while windows overlap and
-// drift away from the owned range along the block. The two variants differ
-// only in how many IQ pairs a thread loads at once — the card's counterpart
-// of the TPU's u32-vs-u16 window layouts:
-//   K2  (kPairs = 2): one 4-byte load, two samples, per thread and step;
+// At a block's size a launch is not a stream at the memory rate: measured
+// on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md), an empty launch between
+// two events is 5 us, a float4 copy of the same bytes takes 11 us at the
+// 64 MS/s geometry, and the kernel takes what that copy takes.
+//
+// Design: one thread block of 256 threads per tile of 1024 samples, all
+// blocks resident in one wave at the 64 and 8 MS/s geometries. The tile
+// decodes its window (1024 + taps_eff + 1 samples, which covers the whole
+// PLL headroom, so no fallback branch) from device memory into shared
+// memory, and, separately, the 1024 envelope samples it owns, which it
+// writes to env four at a time, one 16-byte store: each env sample is
+// written exactly once, by its owner, while windows overlap and drift away
+// from the owned range along the block (the window starts
+// phase + 1024c*(2*inv - 1) - margin samples from tile c's owned range: 6
+// samples over a block at the nominal 64 MS/s rate, 680 at the nominal
+// 8 MS/s rate, 1,600 at the PLL's ends). The owned samples' stores are
+// issued before the barrier the window waits at. Each thread then takes two
+// adjacent samples at a time, four adjacent pixels, one 16-byte store. No
+// thread waits on a 64-bit division: pixels are masked by a per-tile count
+// that needs the quotient only in the one tile n_out falls into, and one
+// thread of block 0 computes the carries. A tile with no complete pixel
+// decodes no window and stores zero pixels.
+//
+// Measured against this design and not taken, each slower at one geometry
+// or both (PERF.md): 128 threads; the window's raw pairs staged with 16-byte
+// asynchronous copies and decoded from shared memory (a second barrier);
+// 16-byte loads of eight pairs a thread; copying the owned samples from the
+// decoded window instead of decoding them a second time (their stores then
+// wait for the barrier).
+//
+// The two variants differ only in how many IQ pairs one load decodes — the
+// card's counterpart of the TPU's u32-vs-u16 window layouts:
+//   K2  (kPairs = 2): one 4-byte load, two samples;
 //   K2' (kPairs = 1): one 2-byte load, one sample.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staged_window.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 4;
-constexpr int kTile = kThreads * kPerThread;  // samples per thread block
+constexpr int kTile = 1024;  // samples per thread block: the unit of the f32 ramp
 constexpr int kFracBits = 40;
 
 __device__ __forceinline__ float mag(unsigned i, unsigned q, unsigned flip) {
@@ -56,15 +81,27 @@ __device__ __forceinline__ float mag(unsigned i, unsigned q, unsigned flip) {
   return __fmul_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b))), 0.0078125f);
 }
 
-// x_ext sample of envelope index e, for e outside the pairs a thread loads
-__device__ __forceinline__ float sample_at(const uint8_t* raw, const float* tail, long long e,
-                                           long long n, int taps, unsigned flip) {
-  if (e >= 0 && e < n) {
-    const unsigned v = *reinterpret_cast<const uint16_t*>(raw + 2 * e);
-    return mag(v & 0xFFu, v >> 8, flip);
+__device__ __forceinline__ float mag_pair(unsigned v, unsigned flip) {
+  return mag(v & 0xFFu, (v >> 8) & 0xFFu, flip);
+}
+
+// x_ext sample of envelope index e outside the raw block: the tail or 0
+__device__ __forceinline__ float outside(const float* tail, long long e, int taps) {
+  return (e < 0 && e >= -taps) ? tail[taps + e] : 0.0f;
+}
+
+// decodes the adjacent samples (e, e + 1), e even, from the pairs at p
+// (4-byte aligned): one load (K2) or two (K2')
+template <int kPairs>
+__device__ __forceinline__ void decode2(const uint16_t* p, unsigned flip, float& v0, float& v1) {
+  if (kPairs == 2) {
+    const unsigned v = *reinterpret_cast<const uint32_t*>(p);
+    v0 = mag_pair(v, flip);
+    v1 = mag_pair(v >> 16, flip);
+  } else {
+    v0 = mag_pair(p[0], flip);
+    v1 = mag_pair(p[1], flip);
   }
-  if (e < 0 && e >= -taps) return tail[taps + e];
-  return 0.0f;
 }
 
 // as in strided_resample.cu
@@ -81,105 +118,94 @@ __device__ __forceinline__ float box(const float* win, int s, float rel, float e
 }
 
 template <int kPairs>
-__global__ void __launch_bounds__(kThreads)
-fused_kernel(const uint8_t* __restrict__ raw, unsigned flip, const float* __restrict__ tail,
+__global__ void __launch_bounds__(kThreads, 4)
+fused_kernel(const uint16_t* __restrict__ raw, unsigned flip, const float* __restrict__ tail,
              const long long* __restrict__ phase_p, const long long* __restrict__ inv_p,
              long long n_samples, float* __restrict__ env, float* __restrict__ out,
              int* __restrict__ n_out_p, long long* __restrict__ new_phase_p,
              long long max_pix, int taps, int margin, int taps_eff) {
-  extern __shared__ float win_raw[];  // kTile + taps_eff + 1 samples
-  __shared__ long long s_n_out;
+  extern __shared__ __align__(16) float win_f[];  // kTile + taps_eff + 1 samples
   const long long phase = *phase_p;
   const long long inv = *inv_p;  // > 0
   const long long n = n_samples;  // even
   const long long c = blockIdx.x;
-  if (threadIdx.x == 0) {
-    const long long size_fix = n << kFracBits;
-    const long long num = size_fix - phase;
-    const long long n_out = num > 0 ? num / inv : 0;
-    s_n_out = n_out;
-    if (c == 0) {
-      *n_out_p = (int)n_out;
-      *new_phase_p = phase + n_out * inv - size_fix;
-    }
-  }
+  const int tid = threadIdx.x;
+  const long long size_fix = n << kFracBits;
+  const long long num = size_fix - phase;
 
-  // the tile's window, as K1's: x_ext indices from w0 = start - margin + taps,
-  // i.e. envelope indices from w0 - taps; staged from the even envelope
-  // index e0 <= w0 - taps so that pairs stay 4-byte aligned
-  const long long base = phase + c * (2LL * kTile) * inv;
+  // the tile's window, as K1's: x_ext indices from start - margin + taps,
+  // i.e. envelope indices from start - margin; decoded from the even
+  // envelope index e0 at or below it so that two pairs stay 4-byte aligned
+  const long long p0 = c * (2LL * kTile);
+  const int lim = tsdr::valid_pixels(p0, 2 * kTile, num, inv);
+  const long long base = phase + p0 * inv;
   const long long start = base >> kFracBits;
-  const float frac = __fmul_rn(__ll2float_rn(base - (start << kFracBits)),
-                               1.0f / (float)(1LL << kFracBits));
   const int par = (int)((start - margin) & 1);
   const long long e0 = start - margin - par;
   const int w_len = kTile + taps_eff + 1;
-  if (kPairs == 2) {
-    for (int m = threadIdx.x; 2 * m < w_len; m += kThreads) {
-      const long long e = e0 + 2 * m;  // even: the pair (e, e+1) is inside [0, n) or outside
+
+  if (c == 0 && tid == 0) {
+    // exact carries; a negative numerator (a drop skip draining past this
+    // block) gives n_out = 0
+    const long long n_out = num > 0 ? num / inv : 0;
+    *n_out_p = (int)n_out;
+    *new_phase_p = phase + n_out * inv - size_fix;
+  }
+
+  if (lim > 0) {
+    for (int m = tid; 2 * m < w_len; m += kThreads) {
+      const long long e = e0 + 2 * m;  // even: the pair (e, e + 1) is inside [0, n) or outside
       float v0, v1;
       if (e >= 0 && e < n) {
-        const unsigned v = *reinterpret_cast<const uint32_t*>(raw + 2 * e);
-        v0 = mag(v & 0xFFu, (v >> 8) & 0xFFu, flip);
-        v1 = mag((v >> 16) & 0xFFu, v >> 24, flip);
+        decode2<kPairs>(raw + e, flip, v0, v1);
       } else {
-        v0 = sample_at(raw, tail, e, n, taps, flip);
-        v1 = sample_at(raw, tail, e + 1, n, taps, flip);
+        v0 = outside(tail, e, taps);
+        v1 = outside(tail, e + 1, taps);
       }
-      win_raw[2 * m] = v0;
-      if (2 * m + 1 < w_len) win_raw[2 * m + 1] = v1;
-    }
-  } else {
-    for (int k = threadIdx.x; k < w_len; k += kThreads) {
-      win_raw[k] = sample_at(raw, tail, e0 + k, n, taps, flip);
+      win_f[2 * m] = v0;
+      if (2 * m + 1 < w_len) win_f[2 * m + 1] = v1;
     }
   }
 
-  // the envelope samples this tile owns
+  // the envelope samples this tile owns, four to a store
   const long long own = c * kTile;
-  if (kPairs == 2) {
-    for (int m = threadIdx.x; m < kTile / 2; m += kThreads) {
-      const long long e = own + 2 * m;
-      if (e < n) {
-        const unsigned v = *reinterpret_cast<const uint32_t*>(raw + 2 * e);
-        *reinterpret_cast<float2*>(env + e) =
-            make_float2(mag(v & 0xFFu, (v >> 8) & 0xFFu, flip), mag((v >> 16) & 0xFFu, v >> 24, flip));
-      }
-    }
-  } else {
-    for (int k = threadIdx.x; k < kTile; k += kThreads) {
-      const long long e = own + k;
-      if (e < n) {
-        const unsigned v = *reinterpret_cast<const uint16_t*>(raw + 2 * e);
-        env[e] = mag(v & 0xFFu, v >> 8, flip);
-      }
+  for (int q = tid; q < kTile / 4; q += kThreads) {
+    const long long e = own + 4 * q;
+    if (e < n) {
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      decode2<kPairs>(raw + e, flip, v[0], v[1]);
+      if (e + 2 < n) decode2<kPairs>(raw + e + 2, flip, v[2], v[3]);
+      tsdr::store4(env, e, n, v);
     }
   }
-  __syncthreads();
 
-  // K1's resample on the staged window (win[j] = x_ext[w0 + j])
-  const float* win = win_raw + par;
-  const long long n_out = s_n_out;
   const float inv_f = __fmul_rn(__ll2float_rn(inv), 1.0f / (float)(1LL << kFracBits));
   const float rate = __fdiv_rn((float)(1LL << kFracBits), __ll2float_rn(inv));
   const float delta2 = (float)(2.0 * (double)inv * (1.0 / (double)(1LL << kFracBits)) - 1.0);
+  const float frac = __fmul_rn(__ll2float_rn(base - (start << kFracBits)),
+                               1.0f / (float)(1LL << kFracBits));
   const float rel0 = __fadd_rn((float)margin, frac);
+  __syncthreads();
 
+  // K1's resample on the window (win[j] = x_ext[start - margin + taps + j])
+  const float* win = win_f + par;
 #pragma unroll
-  for (int k = 0; k < kPerThread; ++k) {
-    const int s = threadIdx.x + k * kThreads;
-    const float rel_e = __fadd_rn(rel0, __fmul_rn((float)s, delta2));
-    const float rel_o = __fadd_rn(rel_e, inv_f);
-    const float acc_e = box(win, s, rel_e, rel_o, taps_eff);
-    const float acc_o = box(win, s, rel_o, __fadd_rn(rel_o, inv_f), taps_eff);
-    const long long p = c * (2LL * kTile) + 2LL * s;
-    const float ve = p < n_out ? __fmul_rn(acc_e, rate) : 0.0f;
-    const float vo = p + 1 < n_out ? __fmul_rn(acc_o, rate) : 0.0f;
-    if (p + 1 < max_pix) {
-      *reinterpret_cast<float2*>(out + p) = make_float2(ve, vo);
-    } else if (p < max_pix) {
-      out[p] = ve;
+  for (int it = 0; it < kTile / (2 * kThreads); ++it) {
+    const int s0 = 2 * (tid + it * kThreads);
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int s = s0 + u;
+      v[2 * u] = v[2 * u + 1] = 0.0f;
+      if (2 * s < lim) {  // lim == 0: the window was not decoded and is not read
+        const float rel_e = __fadd_rn(rel0, __fmul_rn((float)s, delta2));
+        const float rel_o = __fadd_rn(rel_e, inv_f);
+        v[2 * u] = __fmul_rn(box(win, s, rel_e, rel_o, taps_eff), rate);
+        if (2 * s + 1 < lim)
+          v[2 * u + 1] = __fmul_rn(box(win, s, rel_o, __fadd_rn(rel_o, inv_f), taps_eff), rate);
+      }
     }
+    tsdr::store4(out, p0 + 2LL * s0, max_pix, v);
   }
 }
 
@@ -188,15 +214,16 @@ fused_kernel(const uint8_t* __restrict__ raw, unsigned flip, const float* __rest
 extern "C" int tsdr_fused_tile() { return kTile; }
 
 // Launches K2 (pairs = 2) or K2' (pairs = 1) on `stream`; returns the
-// cudaError_t of the launch (0 = ok). raw must be 4-byte aligned and
-// n_samples even.
+// cudaError_t of the launch (0 = ok). raw must be 4-byte aligned, n_samples
+// even, and env and out 16-byte aligned (fresh torch allocations are).
 extern "C" int tsdr_fused_demod_resample(const void* raw, int is_signed, int pairs,
                                          const float* tail, const long long* phase,
                                          const long long* inv, long long n_samples,
                                          float* env, float* out, int* n_out,
                                          long long* new_phase, long long max_pix, int taps,
                                          int margin, int taps_eff, void* stream) {
-  if (max_pix <= 0 || n_samples <= 0 || (n_samples & 1) || (pairs != 1 && pairs != 2)) {
+  if (max_pix <= 0 || n_samples <= 0 || (n_samples & 1) || (pairs != 1 && pairs != 2) ||
+      ((uintptr_t)raw & 3) != 0 || (((uintptr_t)env | (uintptr_t)out) & 15) != 0) {
     return 1;  // cudaErrorInvalidValue
   }
   const long long pix_blocks = (max_pix + 2LL * kTile - 1) / (2LL * kTile);
@@ -204,7 +231,7 @@ extern "C" int tsdr_fused_demod_resample(const void* raw, int is_signed, int pai
   const long long blocks = pix_blocks > env_blocks ? pix_blocks : env_blocks;
   const size_t smem = (size_t)(kTile + taps_eff + 1) * sizeof(float);
   const unsigned flip = is_signed ? 128u : 0u;
-  const uint8_t* r = static_cast<const uint8_t*>(raw);
+  const uint16_t* r = static_cast<const uint16_t*>(raw);
   if (pairs == 2) {
     fused_kernel<2><<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(
         r, flip, tail, phase, inv, n_samples, env, out, n_out, new_phase, max_pix, taps,

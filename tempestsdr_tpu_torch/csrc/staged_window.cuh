@@ -1,13 +1,14 @@
-// Window staging for the resample kernels K1 and K3, for Hopper.
+// Window staging for the resample kernels K1, K3 and K4, for Hopper, and the
+// pixel mask and 16-byte store they share with K2.
 //
-// A thread block of either kernel stages one window of the envelope into
-// shared memory (K1: a chunk's, K3: a group of tiles'), waits for it once and
-// computes from it. The window goes as 16-byte asynchronous copies
-// (cp.async.cg, all threads) from the 16-byte boundary at or below its first
-// sample, whatever the alignment of the envelope itself; a window that
-// leaves the envelope (the first and last of a block of samples) goes as
-// checked 4-byte loads. The host statement of the same rules is
-// kernels/window_plan.py.
+// A thread block of K1, K3 or K4 stages one window of floats into shared
+// memory (K1: a chunk's envelope window, K3: a group of tiles', K4: a
+// group's rows of gathered windows), waits for it once and computes from
+// it. The window goes as 16-byte asynchronous copies (cp.async.cg, all
+// threads) from the 16-byte boundary at or below its first sample, whatever
+// the alignment of the input itself; a window that leaves the input (the
+// first and last of a block of samples) goes as checked 4-byte loads. The
+// host statement of the same rules is kernels/window_plan.py.
 
 #pragma once
 

@@ -5,6 +5,7 @@ CUDA tensors (or raises), and counts its launches."""
 from .chunked_resample import (  # noqa: F401
     box_resample_pallas_cuda,
     box_resample_pallas_windows_cuda,
+    gather_windows,
 )
 from .fused_demod_resample import (  # noqa: F401
     fused_demod_resample_cuda,
@@ -19,6 +20,7 @@ WRAPPERS = (
     fused_demod_resample_u16_cuda,
     box_resample_pallas_cuda,
     box_resample_pallas_windows_cuda,
+    gather_windows,
 )
 
 # the CUDA sources under csrc/, one library each

@@ -11,10 +11,22 @@ for am_demod(normalize_iq(raw)) followed by box_resample_strided on
 concat(tail, env). The envelope is bit-exact against the plain version; the
 pixels are K1's (within 2e-5 of the plain strided form, as K1 is).
 
-K2 loads two IQ pairs (4 bytes) per thread and step, K2' one pair (2 bytes):
-the same function, kept as the card's A/B of the TPU's two window layouts.
-Like K1, the kernel covers the whole PLL headroom (k1_margin) and needs no
-fallback branch.
+The kernel stands on its copy floor (a float4 copy of its 11.1 MB at
+64 MS/s takes what it takes, PERF.md). The design: one thread block of 256
+threads per 1024-sample tile, all resident in one wave at the 64 and 8 MS/s
+geometries; the tile decodes its window from device memory into shared
+memory and, separately, the envelope samples it owns (tile c owns
+[1024c, 1024c + 1024): each is written once, kernels/window_plan.py), whose
+stores go out before the barrier the window waits at; envelope and pixels
+stored 16 bytes at a time, and no thread waiting on the carries' 64-bit
+division. Staging the raw pairs with asynchronous copies, copying owned
+samples from the decoded window and 128-thread blocks each measured slower.
+raw may start at any 4-byte boundary.
+
+K2 decodes two IQ pairs per 4-byte load, K2' one pair per 2-byte load: the
+same function, kept as the card's A/B of the TPU's two window layouts (on
+this design the two take the same time). Like K1, the kernel covers the whole PLL
+headroom (k1_margin) and needs no fallback branch.
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
-"""The window staging arithmetic of K1 and K3 in plain Python: the host
-statement of the rules in csrc/staged_window.cuh. The kernels compute the
-same numbers on the card; here slot_floats sizes shared memory in K3's
-wrapper, and the CPU tests hold the rules to what the kernels need of them
-(every staged window covers its taps, fits shared memory, and the
-division-free pixel count equals the carries' n_out).
+"""The window arithmetic of K1, K2, K3 and K4 in plain Python: the host
+statement of the rules in csrc/staged_window.cuh and of K2's window and
+ownership. The kernels compute the same numbers on the card; here
+slot_floats sizes shared memory in K3's and K4's wrappers, and the CPU tests
+hold the rules to what the kernels need of them (every window covers its
+taps and fits shared memory, the division-free pixel count equals the
+carries' n_out, and K2's tiles write every envelope sample exactly once).
 """
 
 from __future__ import annotations
+
+from ..config import FRAC_BITS
 
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a thread block can use on Hopper
 
@@ -33,3 +36,24 @@ def valid_pixels(p0: int, total: int, num: int, inv: int) -> int:
     if (p0 + total) * inv <= num:
         return total
     return num // inv - p0
+
+
+def k2_window(c: int, phase: int, inv: int, margin: int, taps_eff: int, tile: int):
+    """(e0, w_len, par) of K2's tile c: its window holds the x_ext samples of
+    envelope indices [e0, e0 + w_len), e0 even (two IQ pairs stay 4-byte
+    aligned), and K1's window starts `par` samples into it."""
+    start = (phase + c * 2 * tile * inv) >> FRAC_BITS
+    par = (start - margin) & 1
+    return start - margin - par, tile + taps_eff + 1, par
+
+
+def k2_tiles(n: int, max_pix: int, tile: int) -> int:
+    """K2's thread blocks: enough tiles for every pixel (2 * tile each) and
+    for every envelope sample (tile each; tile c owns the samples
+    [c * tile, c * tile + tile) below n and writes each exactly once)."""
+    return max(-(-max_pix // (2 * tile)), -(-n // tile))
+
+
+def k2_smem_bytes(taps_eff: int, tile: int) -> int:
+    """Shared memory of a K2 thread block: the decoded float window."""
+    return (tile + taps_eff + 1) * 4

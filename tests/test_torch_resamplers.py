@@ -30,7 +30,14 @@ from tempestsdr_tpu_torch.kernels import (
     fused_demod_resample_cuda,
     fused_demod_resample_u16_cuda,
 )
-from tempestsdr_tpu_torch.kernels.chunked_resample import TILE, group_tiles, window_len
+from tempestsdr_tpu_torch.kernels.chunked_resample import (
+    TILE,
+    gather_windows,
+    gather_windows_plain,
+    group_tiles,
+    k4_window_len,
+    window_len,
+)
 from tempestsdr_tpu_torch.kernels.fused_demod_resample import fused_demod_resample
 
 RATES = (1.99876, 1.5123, 0.71234)  # as tests/test_pallas.py:79
@@ -92,6 +99,34 @@ def test_chunked_matches_jax_k3_k4_interpret(interpret_pallas, kernel, rate):
     a, b = _both(getattr(interpret_pallas, kernel), tops.box_resample_block_chunked, x,
                  inv_fix, kw)
     np.testing.assert_allclose(b, a, rtol=3e-4, atol=3e-4)
+
+
+@pytest.mark.parametrize("phase", [PHASE, -(1 << FRAC_BITS) - 12345, 4000 << FRAC_BITS])
+@pytest.mark.parametrize("rate", RATES)
+def test_gathered_windows_feed_k4_as_jax(interpret_pallas, rate, phase):
+    """K4's inputs on the CPU: gather_windows, at the row width padded to a
+    multiple of 4, with the TPU kernel's own weights and reduction
+    (resample_kernel.py:58-67, in torch) gives the pixels of the TPU K4 in
+    interpret mode within 3e-4 (tests/test_pallas.py:99; the padding
+    columns get weight 0), as does the wrapper's CPU path; carries exact."""
+    x, inv_fix, kw = _block(rate)
+    a, b = _both(interpret_pallas.box_resample_pallas_windows, box_resample_pallas_windows_cuda,
+                 x, inv_fix, kw, phase=phase)
+    np.testing.assert_allclose(b, a, rtol=3e-4, atol=3e-4)
+    xt, pt, it = torch.from_numpy(x), torch.tensor(phase), torch.tensor(inv_fix)
+    windows, fracs = gather_windows(xt, pt, it, max_pix=kw["max_pix"], taps=kw["taps"],
+                                    inv_nominal=kw["inv_nominal"])
+    w_in = k4_window_len(kw["inv_nominal"], kw["taps"])
+    assert windows.shape == (-(-kw["max_pix"] // TILE), w_in) and w_in % 4 == 0
+    assert 0 <= w_in - window_len(kw["inv_nominal"], kw["taps"]) < 4
+    inv_f = it.to(torch.float32) * 2.0 ** (-FRAC_BITS)
+    pos = fracs[:, None, None] + torch.arange(TILE, dtype=torch.float32)[None, None, :] * inv_f
+    jj = torch.arange(w_in, dtype=torch.float32)[None, :, None]
+    w = torch.clamp(torch.minimum(pos + inv_f, jj + 1.0) - torch.maximum(pos, jj), min=0.0)
+    pixels = (w * windows[:, :, None]).sum(dim=1).reshape(-1)[:kw["max_pix"]] * (1.0 / inv_f)
+    n_out, _ = tops.resample_counts(pt, it, kw["n_samples"])
+    pixels = torch.where(torch.arange(kw["max_pix"]) < n_out, pixels, torch.zeros(()))
+    np.testing.assert_allclose(_np(pixels), a, rtol=3e-4, atol=3e-4)
 
 
 def _load_u16_probe():
@@ -193,6 +228,11 @@ def _fused_args():
             torch.tensor(round(0.500004 * (1 << FRAC_BITS)))), kw
 
 
+def _gather_args():
+    args, kw = _resample_args(RATES[1])
+    return args, {k: v for k, v in kw.items() if k != "n_samples"}
+
+
 WRAPPERS = {
     "K1": (box_resample_strided_cuda, tops.box_resample_strided,
            lambda: _resample_args(1 / 0.500004)),
@@ -202,6 +242,7 @@ WRAPPERS = {
            lambda: _resample_args(RATES[1])),
     "K4": (box_resample_pallas_windows_cuda, tops.box_resample_block_chunked,
            lambda: _resample_args(RATES[2])),
+    "gather": (gather_windows, gather_windows_plain, _gather_args),
 }
 
 
