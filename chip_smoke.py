@@ -29,16 +29,36 @@
    streams the same blocks through its function entry;
 5. cross-checks the card's step against the CPU step at 8 MS/s for six
    configurations, and profiles steady default blocks;
-6. prints a JSON line of the floors, a JSON line of per-kernel numbers,
+6. drives the front door: a uint8 capture written to a temporary file goes
+   through tempestsdr_tpu_torch.cli.main (rawfile source, 64 MS/s, frames
+   and plots saved, K1 once per block) and through TSDR with
+   resampler="fused" (K2 once per block); --auto-resolution --auto-apply
+   at 8 MS/s from a wrong height must detect 628 lines at 60 Hz, warm the
+   new geometry while streaming, restart and emit frames at the new shape;
+7. runs a batch_blocks=4 session against batch_blocks=1 (frames equal),
+   live controls from a second thread on a start_async session (set_params,
+   nudge_refreshrate, sync_shift, dump_autocorr, stop), and a
+   superresolution session (a 16 MS/s native source stitched to the 64 MS/s
+   geometry, through K1), with stitch_hops on the card held against the CPU
+   and the alignment lags equal;
+8. prints the dispatch floor, what batch_blocks="auto" resolves to, and a
+   first block in a fresh process cold and after warm_compile_step
+   (`chip_smoke.py --first-block cold|warm`, which it starts itself);
+9. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 2
 before printing any result.
 """
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -48,8 +68,8 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     sys.exit(2)
 
-from tempestsdr_tpu_torch import kernels  # noqa: E402
-from tempestsdr_tpu_torch.config import PipelineConfig  # noqa: E402
+from tempestsdr_tpu_torch import TSDR, cli, kernels, superband  # noqa: E402
+from tempestsdr_tpu_torch.config import PIXEL_SPECIAL_VALUE_G, PipelineConfig  # noqa: E402
 from tempestsdr_tpu_torch.kernels import build  # noqa: E402
 from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
     box_resample_pallas_cuda,
@@ -78,8 +98,15 @@ from tempestsdr_tpu_torch.params import Params  # noqa: E402
 from tempestsdr_tpu_torch.sources.base import Source, SourceBlock  # noqa: E402
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
 from tempestsdr_tpu_torch.stream.pipeline import StepControls, make_step  # noqa: E402
-from tempestsdr_tpu_torch.stream.session import Session, SessionCallbacks  # noqa: E402
+from tempestsdr_tpu_torch.stream import session as session_mod  # noqa: E402
+from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
+    Session,
+    SessionCallbacks,
+    resolve_batch_blocks,
+    warm_compile_step,
+)
 from tempestsdr_tpu_torch.stream.state import init_state  # noqa: E402
+from tempestsdr_tpu_torch.utils.profiling import measure_dispatch_floor, profile_trace  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -96,6 +123,8 @@ STEP_TOL = {  # the card's step against the CPU step, frames max abs diff
     "pallas": 2e-3, "pallas_windows": 2e-3, "fir31+pallas": 2e-3,  # K3-class pixels;
     # 2e-3 is the JAX package's kernel-vs-XLA step tolerance (tests/test_stream.py:91)
 }
+STITCH_TOL = 1e-4  # stitch_hops on the card against the CPU, of the peak magnitude:
+# complex64 FFTs of 2^21 and 2^23 points, cuFFT against pocketfft
 CORR_MIN = 0.9  # first frame vs the box-resampled raster (noise 0.02, u8):
 # the first frame is folded before the PLL first moves the rate, so it must
 # reproduce the raster (0.94 seen); later frames follow the PLL's walk
@@ -416,7 +445,8 @@ class ReplayU8(Source):
     """Pre-made uint8 IQ blocks of a synthetic emanation (the data is made
     before the timed run; loading it is set-up)."""
 
-    def __init__(self, cfg, raster, n_blocks, noise=0.02, gain=80.0):
+    def __init__(self, cfg, raster, n_blocks, noise=0.02, gain=80.0, loop=False):
+        self.loop, self.working = loop, True
         pixclock = raster.shape[0] * raster.shape[1] * cfg.refreshrate
         self.blocks = []
         for b in range(n_blocks):
@@ -436,11 +466,17 @@ class ReplayU8(Source):
         return self.rate
 
     def stream(self, block_samples):
-        for blk in self.blocks:
-            yield SourceBlock(blk, 0)
+        self.working = True
+        while self.working:
+            for blk in self.blocks:
+                if not self.working:
+                    return
+                yield SourceBlock(blk, 0)
+            if not self.loop:
+                return
 
     def stop(self):
-        pass
+        self.working = False
 
 
 def expected_frame(cfg, raster):
@@ -561,23 +597,26 @@ def check_against_cpu(cfg, n_blocks=3):
 
 
 def profile_steady(cfg, n_blocks=6):
-    """torch.profiler over steady 64 MS/s blocks: device busy share (sum of
-    kernel and copy time over wall time) and the top device consumers."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The port's profile_trace (torch.profiler) over steady 64 MS/s blocks:
+    device busy share (sum of kernel and copy time over wall time), the top
+    device consumers, and the Chrome trace it writes."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     warm_up(cfg, raster, Params())
     sess = Session(cfg, Params(), ReplayU8(cfg, raster, n_blocks), device=DEV)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sess.run(max_blocks=n_blocks)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            sess.run(max_blocks=n_blocks)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        (trace,) = os.listdir(logdir)
+        trace_bytes = os.path.getsize(os.path.join(logdir, trace))
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    assert events and trace_bytes > 0, "profile_trace recorded no device activity"
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    row = dict(blocks=n_blocks, wall_ms_per_block=wall_ms / n_blocks,
+    row = dict(blocks=n_blocks, trace_bytes=trace_bytes, wall_ms_per_block=wall_ms / n_blocks,
                device_ms_per_block=dev_ms / n_blocks, device_busy_share=dev_ms / wall_ms,
                top=[(e.key[:60], e.self_device_time_total / 1e3 / n_blocks, e.count)
                     for e in top])
@@ -595,6 +634,313 @@ def fetch_cost_us(reps=200):
         torch.stack([v.to(torch.int64) for v in vals]).tolist()
         times.append(time.perf_counter() - t0)
     return float(np.median(times)) * 1e6
+
+
+def counts():
+    return {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
+
+
+def only(launches, **want):
+    """The launch counts are exactly `want` (wrapper name -> count), every
+    other kernel 0."""
+    assert launches == {k: want.get(k, 0) for k in launches}, (want, launches)
+
+
+def write_capture(cfg, path, n_blocks):
+    """A uint8 capture of the synthetic emanation at cfg's rate: the blocks
+    a ReplayU8 would stream, as a raw file for the rawfile source."""
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    np.concatenate(ReplayU8(cfg, raster, n_blocks).blocks).tofile(path)
+    return raster
+
+
+def run_cli(argv):
+    """cli.main with its log captured; returns (lines without their time
+    stamps, wall seconds). The log is printed after the run."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    assert rc == 0, rc
+    lines = buf.getvalue().splitlines()
+    for line in lines[:6] + (["  ..."] if len(lines) > 12 else []) + lines[6:][-6:]:
+        print("  cli| " + line)
+    return [line.split("] ", 1)[-1] for line in lines], dt
+
+
+def front_door(cfg, tmp, hand_built_ms):
+    """Phase 6a: the 64 MS/s capture through the command line (default
+    Params: K1) and through TSDR with resampler="fused" (K2)."""
+    path = os.path.join(tmp, "capture64.u8")
+    raster = write_capture(cfg, path, 12)
+    n_frames = 6
+    # frame k completes in the block that brings the fold to k frames
+    blocks = -(-n_frames * cfg.frame_pixels * cfg.samples_per_pixel // cfg.block_samples)
+    out, plots = os.path.join(tmp, "frames"), os.path.join(tmp, "plots")
+    kernels.reset_launch_counts()
+    log, dt = run_cli([
+        "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
+        "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
+        "--rate", str(cfg.refreshrate), "--out", out, "--plot-out", plots,
+        "--frames", str(n_frames), "--save-every", "2", "--format", "npy"])
+    only(counts(), box_resample_strided_cuda=int(blocks))
+    assert any(line.startswith(f"done: {n_frames} frames") for line in log), log[-3:]
+    saved = sorted(os.listdir(out))
+    assert saved == [f"frame_{i:06d}.npy" for i in (1, 2, 4, 6)], saved
+    first = np.load(os.path.join(out, saved[0]))
+    assert first.shape == (cfg.height, cfg.width) and np.isfinite(first).all()
+    cc = float(np.corrcoef(first.ravel(), expected_frame(cfg, raster).ravel())[0, 1])
+    assert cc > CORR_MIN, f"cli: frame correlation {cc}"
+    rendered = sorted(os.listdir(plots))
+    assert any("autocorr_frame" in f for f in rendered) and any(
+        "autocorr_line" in f for f in rendered), rendered
+    img = np.load(os.path.join(plots, rendered[0]))
+    assert img.shape == (240, 640) and img.max() == 1.0  # the curve, as floats in [0, 1]
+    row = dict(path="cli 64MS/s", blocks=int(blocks), frames=n_frames, corr=cc, plots=len(rendered),
+               per_block_ms=dt / blocks * 1e3, msps=cfg.block_samples * blocks / dt / 1e6,
+               hand_built_session_per_block_ms=hand_built_ms)
+    print("e2e " + json.dumps(row))
+
+    frames = []
+    rx = TSDR(block_samples=cfg.block_samples, device=DEV)
+    rx.load_source("rawfile", f"{path} {cfg.samplerate} uint8")
+    rx.set_resolution(cfg.height, cfg.refreshrate)
+    rx.set_extra_params(resampler="fused")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = rx.start(on_frame=frames.append, max_blocks=8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    only(counts(), fused_demod_resample_cuda=8)
+    rx.close()
+    whole = int(8 * cfg.block_samples // (cfg.frame_pixels * cfg.samples_per_pixel))
+    assert got == len(frames) >= whole and all(
+        f.shape == (cfg.height, cfg.width) and np.isfinite(f).all() for f in frames)
+    cc = float(np.corrcoef(frames[0].ravel(), expected_frame(cfg, raster).ravel())[0, 1])
+    assert cc > CORR_MIN, f"TSDR fused: frame correlation {cc}"
+    print("e2e " + json.dumps(dict(path="TSDR fused 64MS/s", blocks=8, frames=got, corr=cc,
+                                   per_block_ms=dt / 8 * 1e3)))
+    return row
+
+
+def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
+    """Phase 6b: --auto-resolution --auto-apply at 8 MS/s from a wrong
+    height: the mode detected, the new geometry warmed on its thread while
+    the first session streams, the restart, frames at the new shape."""
+    path = os.path.join(tmp, "capture8.u8")
+    write_capture(cfg, path, 24)
+    out = os.path.join(tmp, "frames8")
+    kernels.reset_launch_counts()
+    log, dt = run_cli([
+        "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
+        "--block-samples", str(cfg.block_samples), "--height", str(wrong_height),
+        "--rate", str(cfg.refreshrate), "--blocks", "40", "--out", out, "--save-every", "20",
+        "--format", "npy", "--auto-resolution", "--auto-apply"])
+    pick = lambda word: [i for i, line in enumerate(log) if line.startswith(word)]  # noqa: E731
+    detected, ready, applied = (pick(w) for w in (
+        "AUTO-RESOLUTION", "warm start ready", "applying detected mode"))
+    assert len(detected) == 1 and len(ready) == 1 and len(applied) == 1, log
+    assert detected[0] < ready[0] < applied[0], (detected, ready, applied)
+    assert log[applied[0]] == f"applying detected mode: {cfg.height} lines @ {cfg.refreshrate:g} Hz", \
+        log[applied[0]]
+    assert "60.00 Hz" in log[detected[0]], log[detected[0]]
+    key = (cfg, Params(), 1, DEV)
+    assert key in session_mod._WARM_STEPS, "the detected geometry was not warmed"
+    shapes = [np.load(os.path.join(out, f)).shape for f in sorted(os.listdir(out))]
+    old = PipelineConfig(samplerate=cfg.samplerate, height=wrong_height,
+                         refreshrate=cfg.refreshrate, block_samples=cfg.block_samples)
+    assert shapes[0] == (wrong_height, old.width) and shapes[-1] == (cfg.height, cfg.width), shapes
+    launches = counts()
+    # the first session's blocks (until the warm thread stopped it), the
+    # warm start's one, the restarted session's 40
+    assert 42 <= launches["box_resample_strided_cuda"] <= 81, launches
+    only(launches, box_resample_strided_cuda=launches["box_resample_strided_cuda"])
+    print("auto-resolution round trip (8MS/s): " + json.dumps(dict(
+        detected=log[detected[0]], applied=log[applied[0]], shapes=shapes,
+        k1_launches=launches["box_resample_strided_cuda"], wall_s=dt)))
+
+
+def batched_session(cfg, n_blocks=12):
+    """Phase 7a: batch_blocks=4 against 1 on the same blocks: the same
+    kernels in the same order, so the frames are equal bit for bit."""
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    src_blocks = ReplayU8(cfg, raster, n_blocks).blocks
+    runs = {}
+    for batch in (1, 4, 4, 1):
+        src = ReplayU8(cfg, raster, 0)
+        src.blocks = src_blocks
+        frames = []
+        sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append),
+                       batch_blocks=batch, device=DEV)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess.run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_blocks * 1e3
+        only(counts(), box_resample_strided_cuda=n_blocks)
+        runs.setdefault(batch, dict(frames=frames, ms=[]))["ms"].append(ms)
+    f1, f4 = runs[1]["frames"], runs[4]["frames"]
+    assert len(f1) == len(f4) >= n_blocks * cfg.block_samples // (
+        cfg.frame_pixels * cfg.samples_per_pixel) - 1
+    assert all(np.array_equal(a, b) for a, b in zip(f1, f4)), "batch 4 frames differ from batch 1"
+    print("batched session (64MS/s, in turns 1, 4, 4, 1): " + json.dumps(dict(
+        blocks=n_blocks, frames=len(f1), per_block_ms_batch1=runs[1]["ms"],
+        per_block_ms_batch4=runs[4]["ms"], frames_equal=True)))
+
+
+def live_controls(cfg, tmp):
+    """Phase 7b: a start_async session steered from this (a second) thread:
+    set_params flip, nudge_refreshrate, sync_shift, dump_autocorr, stop."""
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    frames, plots = [], []
+    params = Params(framerate_pll=False)
+    sess = Session(cfg, params, ReplayU8(cfg, raster, 12, loop=True),
+                   SessionCallbacks(on_frame=frames.append, on_plot=plots.append), device=DEV)
+
+    def wait_for(cond, what):
+        deadline = time.time() + 60
+        while not cond():
+            assert time.time() < deadline and sess.is_running, f"live controls: no {what}"
+            time.sleep(0.002)
+
+    sess.start_async()
+    assert sess.is_running
+    wait_for(lambda: len(frames) >= 2, "frames")
+    sess.set_params(params.replace(debug_markers=True))
+    rate = sess.nudge_refreshrate(0.01)
+    assert abs(rate - (cfg.refreshrate + 0.01)) < 1e-6, rate
+    sess.sync_shift(100)
+    n_at_flip = len(frames)
+    wait_for(lambda: len(frames) >= n_at_flip + 3 and plots, "frames after the flip, or no plots")
+    dump = os.path.join(tmp, "autocorr.csv")
+    assert sess.dump_autocorr(dump), "dump_autocorr: no round yet"
+    off_thread_rate = sess.current_refreshrate()
+    sess.stop()
+    assert not sess.is_running
+    n = len(frames)
+    with open(dump) as f:
+        rows = f.read().splitlines()
+    assert rows[0] == "ms, dB" and len(rows) == cfg.ac_fft_size // 2 + 1, len(rows)
+    assert int(sess.state.frame_count) == n, (int(sess.state.frame_count), n)
+    assert not (frames[0] == PIXEL_SPECIAL_VALUE_G).any()
+    assert (frames[-1] == PIXEL_SPECIAL_VALUE_G).any(), "the marker flip never applied"
+    assert abs(sess.current_refreshrate() - (cfg.refreshrate + 0.01)) < 1e-4
+    assert abs(off_thread_rate - (cfg.refreshrate + 0.01)) < 1e-4, off_thread_rate
+    assert sess.params.debug_markers and sess.meter.total_frames == n
+    print("live controls (64MS/s, start_async): " + json.dumps(dict(
+        frames=n, plots=len(plots), dump_rows=len(rows) - 1, refreshrate=off_thread_rate,
+        meter_msps=sess.meter.samples_per_sec / 1e6)))
+
+
+def superresolution(cfg, native_rate=16e6):
+    """Phase 7c: a native-rate source, Params(superresolution=True), the
+    pipeline at cfg (4x the native rate): one stitched cycle through K1.
+    Then stitch_hops on the card against the CPU on shifted, noisy copies of
+    a recorded hop: the alignment lags equal, the stitched stream within
+    STITCH_TOL of its peak."""
+    native = PipelineConfig(samplerate=native_rate, height=cfg.height,
+                            refreshrate=cfg.refreshrate, block_samples=cfg.block_samples)
+    sb = superband.SuperBandwidth(native_rate, cfg.refreshrate, device=DEV)
+    assert sb.output_samplerate == cfg.samplerate
+    # one cycle: four gathers and three retune pauses, in native blocks
+    need = 4 * sb.samples_to_gather + 3 * (sb.samples_to_pause + cfg.block_samples)
+    n_native = -(-need // cfg.block_samples) + 4
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    src = ReplayU8(native, raster, n_native)
+    frames = []
+    sess = Session(cfg, Params(superresolution=True), src,
+                   SessionCallbacks(on_frame=frames.append), device=DEV)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = sess.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    blocks = sess.meter.total_samples // cfg.block_samples
+    # one stitched cycle of 4 * 2^21 samples, in whole blocks
+    assert blocks == 4 * sb.n // cfg.block_samples, blocks
+    only(counts(), box_resample_strided_cuda=blocks)
+    assert got == len(frames) >= 6 and all(
+        f.shape == (cfg.height, cfg.width) and np.isfinite(f).all() for f in frames)
+    assert frames[-1].std() > 0
+
+    rng = np.random.default_rng(12)
+    f = np.concatenate(src.blocks[:-(-sb.n // cfg.block_samples)]).astype(np.float32)[:2 * sb.n]
+    hop0 = ((f[0::2] - 128.0) / 128.0 + 1j * (f[1::2] - 128.0) / 128.0).astype(np.complex64)
+    shifts = [int(v) for v in rng.integers(1, sb.n, size=3)]
+    hops = np.stack([hop0] + [
+        (np.roll(hop0, sh) * 0.9 + (rng.standard_normal(sb.n) + 1j * rng.standard_normal(sb.n))
+         * 0.005).astype(np.complex64) for sh in shifts])
+    lags, lags_cpu = (superband.best_alignment(hops[0], hops[1:], device=d).tolist()
+                      for d in (DEV, "cpu"))
+    assert lags == lags_cpu == shifts, (lags, lags_cpu, shifts)
+    xc = superband._xcorr(*(torch.from_numpy(h).to(DEV) for h in (hops[0], hops[1:])))
+    top2 = torch.topk(xc, 2, dim=-1).values
+    margin = ((top2[:, 0] - top2[:, 1]) / top2[:, 0]).tolist()
+    card_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = superband.stitch_hops(hops, DEV)
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    on_cpu = superband.stitch_hops(hops, "cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    peak = float(np.abs(on_cpu).max())
+    err = float(np.abs(on_card - on_cpu).max()) / peak
+    assert on_card.shape == (4 * sb.n,) and err <= STITCH_TOL, err
+    print("superresolution (16MS/s native -> 64MS/s): " + json.dumps(dict(
+        hop_samples=sb.n, native_blocks=n_native, stitched_blocks=int(blocks), frames=got,
+        stitch_ms_card=card_ms, stitch_ms_cpu=cpu_ms,
+        stitch_rel_err_vs_cpu=err, lags=lags, peak_margin=margin,
+        per_stitched_block_ms=dt / blocks * 1e3)))
+    return sb.n
+
+
+def first_block(mode):
+    """`chip_smoke.py --first-block cold|warm`, in a process of its own:
+    the ms from building a default 64 MS/s Session to the end of its first
+    block, in a process that has touched the card for nothing else (cold)
+    or has run warm_compile_step for that geometry (warm). The kernels'
+    library is already built on disk; its build time is printed by the
+    parent."""
+    cfg = GEOMETRIES["64MS/s"]
+    src = ReplayU8(cfg, render_test_pattern(cfg.height, cfg.width // 2), 2)
+    warm_ms = None
+    if mode == "warm":
+        t0 = time.perf_counter()
+        warm_compile_step(cfg, Params(), raw_dtype=np.uint8, device=DEV)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    sess = Session(cfg, Params(), src, device=DEV)
+    sess.run(max_blocks=1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    assert box_resample_strided_cuda.launches == (2 if mode == "warm" else 1)
+    print(json.dumps(dict(mode=mode, first_block_ms=ms, warm_compile_step_ms=warm_ms)))
+
+
+def numbers_worth_a_line(build_s):
+    """Phase 8: the dispatch floor, what "auto" resolves to, and the first
+    block of a fresh process cold and warmed."""
+    floor = measure_dispatch_floor(DEV)
+    auto = {name: resolve_batch_blocks(cfg, "auto", device=DEV) for name, cfg in GEOMETRIES.items()}
+    assert all(v >= 1 for v in auto.values())
+    first = {}
+    for mode in ("cold", "warm", "warm", "cold"):
+        run = subprocess.run([sys.executable, os.path.abspath(__file__), "--first-block", mode],
+                             capture_output=True, text=True, timeout=300)
+        assert run.returncode == 0, f"--first-block {mode} failed:\n{run.stderr[-2000:]}"
+        first.setdefault(mode, []).append(json.loads(run.stdout.strip().splitlines()[-1]))
+    print("numbers " + json.dumps(dict(
+        dispatch_floor_us=floor * 1e6, auto_batch_blocks=auto, nvcc_build_s=build_s,
+        first_block_ms_cold=[r["first_block_ms"] for r in first["cold"]],
+        first_block_ms_warm=[r["first_block_ms"] for r in first["warm"]],
+        warm_compile_step_ms=[r["warm_compile_step_ms"] for r in first["warm"]])))
 
 
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
@@ -615,12 +961,15 @@ KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
 
 
 def main():
+    if len(sys.argv) == 3 and sys.argv[1] == "--first-block" and sys.argv[2] in ("cold", "warm"):
+        return first_block(sys.argv[2])
     if sys.argv[1:]:
         sys.exit("usage: chip_smoke.py")
     smi = card()
     t_start = time.time()
     build.build(kernels.SOURCES)
-    print(f"built kernels in {time.time() - t_start:.1f} s")
+    build_s = time.time() - t_start
+    print(f"built kernels in {build_s:.1f} s")
     for name in kernels.SOURCES:
         print(build.BUILD_LOG.get(name, "").strip())
 
@@ -654,6 +1003,14 @@ def main():
           + json.dumps(check_against_cpu(GEOMETRIES["8MS/s"])))
     profile_steady(g64)
     print(f"per-block host fetch round trip: {fetch_cost_us():.1f} us")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        front_door(g64, tmp, rows["K1"]["per_block_ms"])
+        auto_resolution_round_trip(GEOMETRIES["8MS/s"], tmp)
+        batched_session(g64)
+        live_controls(g64, tmp)
+    assert superresolution(g64) == 1 << 21  # 2^23 stitched samples a cycle
+    numbers_worth_a_line(build_s)
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
     kern = []

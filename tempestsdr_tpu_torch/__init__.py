@@ -1,6 +1,17 @@
-"""PyTorch/CUDA port of tempestsdr_tpu: the single-channel streaming step and
-Session, with the m == 2 strided box resampler as a hand-written CUDA kernel
-for Hopper (kernels/strided_resample.py, csrc/strided_resample.cu).
+"""PyTorch/CUDA port of tempestsdr_tpu for one NVIDIA H100: the whole
+single-channel receiver, from the front door down to the kernels.
+
+  - api.TSDR and `python -m tempestsdr_tpu_torch.cli`: the reference C API
+    surface and the headless command line (auto-resolution, manual lag
+    selection, snapshots, plots, preferences);
+  - stream.Session: the streaming loop with batching, live params,
+    framerate nudge, async start/stop, autocorrelation dump, warm start and
+    superresolution (superband.py); stream.make_step: the per-block step;
+  - kernels/ and csrc/: the box resamplers as hand-written CUDA kernels for
+    Hopper (strided, fused decode + demod + resample, chunked, windows and
+    their gather), each beside its plain PyTorch version;
+  - ops/, estimate/, sources/ (synthetic, rawfile), snapshot, prefs,
+    utils.profiling.
 
 Entry points take an explicit `device` (default "cuda"); without a CUDA
 device they raise unless the caller asks for "cpu", where every kernel
@@ -16,6 +27,9 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .errors import TSDRStatus, TSDRError  # noqa: E402,F401
+from .params import Params, PARAM  # noqa: E402,F401
 from .config import PipelineConfig  # noqa: E402,F401
-from .params import Params  # noqa: E402,F401
 from .device import resolve_device  # noqa: E402,F401
+from .stream.session import Session, SessionCallbacks  # noqa: E402,F401
+from .api import TSDR  # noqa: E402,F401

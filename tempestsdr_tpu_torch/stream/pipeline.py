@@ -34,6 +34,7 @@ consumes the state it is given, like the JAX Session's donated step.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -89,13 +90,6 @@ class StepHost(NamedTuple):
 
     frame_valid: tuple  # one bool per emit slot
     round_done: bool
-
-
-def _unsupported(params: Params) -> str | None:
-    """Params this slice does not port yet, with the ROADMAP.md item that will."""
-    if params.superresolution:
-        return "superresolution (ROADMAP.md Queue 1: superband.py)"
-    return None
 
 
 def _pick_resampler(config: PipelineConfig, params: Params):
@@ -230,12 +224,13 @@ def _check_range(start: int, size: int, length: int, what: str) -> None:
 
 class Step:
     """The single-channel step for one (config, params, device); see the
-    module docstring. `last` holds the host values of the latest call."""
+    module docstring. `last` holds the host values of the calling thread's
+    latest call: a Step keeps nothing else per call, so a warmed Step may be
+    stepped from a second thread (each on a state of its own) while a
+    session streams. Params.superresolution is the session's business: the
+    step never reads it."""
 
     def __init__(self, config: PipelineConfig, params: Params, device):
-        why = _unsupported(params)
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.config, self.params = config, params
         self.device = resolve_device(device)
         self.resample = _pick_resampler(config, params)
@@ -252,7 +247,11 @@ class Step:
         f32 = lambda v: torch.tensor(np.float32(v), device=self.device)  # noqa: E731
         self.rr_f32 = f32(config.refreshrate)
         self.inv0_f32 = f32(config.inv0_fix)
-        self.last: StepHost | None = None
+        self._per_thread = threading.local()
+
+    @property
+    def last(self) -> StepHost | None:
+        return getattr(self._per_thread, "last", None)
 
     def _full(self, v, dtype):
         return torch.full((), v, dtype=dtype, device=self.device)
@@ -416,8 +415,22 @@ class Step:
             ac_plot_valid=self._full(round_done, torch.bool),
             ac_calls=ac_calls,
         )
-        self.last = StepHost(tuple(valid), round_done)
+        self._per_thread.last = StepHost(tuple(valid), round_done)
         return new_state, outputs
+
+    def warm(self, state: StreamState) -> None:
+        """Run, on `state` and for nothing, the two branches a first block
+        rarely takes: an estimation round (the FFT plan of ac_fft_size) and
+        one frame's post-processing. For warm starts; the results are
+        dropped, but the ring of `state` is shifted as a round shifts it."""
+        if self.run_autocorr:
+            self._ac_round(state.ac_buf, state.ac_avg_frame, state.ac_avg_line, state.ac_calls,
+                           state.ac_last_full)
+        cfg = self.config
+        window = state.framebuf[:cfg.frame_pixels].view(cfg.height, cfg.width)
+        _post_process(cfg, self.params, window, state.screenbuffer,
+                      (state.ag_min, state.ag_max, state.ag_snr), state.sync_x, state.sync_y,
+                      state.pll, 0.0)
 
     def _ac_round(self, buf, avg_f, avg_l, calls, last_full):
         """One estimation round: FFT autocorrelation of the ring's first

@@ -176,15 +176,17 @@ def test_step_resampler_paths(interpret_pallas, flags, frame_atol):
 
 
 @pytest.mark.parametrize("flags,exc", [
-    (dict(superresolution=True), NotImplementedError),
     (dict(resampler="no_such_resampler"), ValueError),
 ])
 def test_unported_params_raise(flags, exc):
-    """superresolution is not ported yet (its error names the ROADMAP item);
-    an unknown resampler name is a ValueError, as in the JAX package."""
+    """An unknown resampler name is a ValueError, as in the JAX package.
+    (Every Params flag is ported: superresolution is the session's business,
+    tests/test_torch_superband.py, and the step ignores it as the JAX step
+    does.)"""
     _, tcfg = _configs(8192)
-    with pytest.raises(exc, match="ROADMAP.md" if exc is NotImplementedError else "resampler"):
+    with pytest.raises(exc, match="resampler"):
         make_step(tcfg, Params(**flags), device="cpu")
+    assert make_step(tcfg, Params(superresolution=True), device="cpu").params.superresolution
 
 
 def test_batched_step_raises():
@@ -312,6 +314,29 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         make_step(tcfg, Params())
     with pytest.raises(RuntimeError, match="CUDA"):
         init_state(tcfg)
+    # the front door: warm start, TSDR and the command line
+    from tempestsdr_tpu_torch import TSDR, cli
+    from tempestsdr_tpu_torch.stream.session import warm_compile_step
+    from tempestsdr_tpu_torch.superband import stitch_hops
+    from tempestsdr_tpu_torch.utils.profiling import measure_dispatch_floor
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        warm_compile_step(tcfg, Params())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measure_dispatch_floor()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stitch_hops(np.zeros((4, 64), np.complex64))
+    rx = TSDR(block_samples=8192)
+    rx.load_source("synthetic", f"{LINES} {TWIDTH} {REFRESH} {SR}")
+    rx.set_resolution(LINES, REFRESH)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rx.start(on_frame=lambda f: None, max_frames=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rx.warm_resolution(LINES, REFRESH)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--source", "synthetic", "--source-params", f"{LINES} {TWIDTH} {REFRESH} {SR}",
+                  "--height", str(LINES), "--rate", str(REFRESH), "--block-samples", "8192",
+                  "--frames", "1"])
 
 
 def _imported_modules(path):
