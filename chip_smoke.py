@@ -44,7 +44,19 @@
 8. prints the dispatch floor, what batch_blocks="auto" resolves to, and a
    first block in a fresh process cold and after warm_compile_step
    (`chip_smoke.py --first-block cold|warm`, which it starts itself);
-9. prints a JSON line of the floors, a JSON line of per-kernel numbers,
+9. runs multi-target on the card at config 5's geometry (8 channels at
+   16 MS/s, block 786432, K == 4): MultiSession over 8 uint8 sources of
+   their own line widths (K1 8 times a block, frames and plots on every
+   channel, no two channels alike), the hybrid step's stacked demod against
+   per-channel demod (bit for bit), resampler="fused" (K2 8 times a block)
+   against the hybrid step with K1, the hybrid step (K1) against each
+   channel's single-channel step with the plain strided resampler, each with
+   a drop on one channel, the card's hybrid step against the CPU's at 8 MS/s with
+   3 channels, and a simlive source (native ring) through Session; prints
+   per-block ms, the aggregate MS/s against the 128 MS/s of real time, the
+   per-block split and the frame download's share, and the device busy
+   share under profile_trace;
+10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
 Any failure raises and exits nonzero. Without a CUDA device it exits 2
@@ -60,6 +72,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -68,7 +81,7 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     sys.exit(2)
 
-from tempestsdr_tpu_torch import TSDR, cli, kernels, superband  # noqa: E402
+from tempestsdr_tpu_torch import TSDR, cli, kernels, native, superband  # noqa: E402
 from tempestsdr_tpu_torch.config import PIXEL_SPECIAL_VALUE_G, PipelineConfig  # noqa: E402
 from tempestsdr_tpu_torch.kernels import build  # noqa: E402
 from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
@@ -95,9 +108,16 @@ from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
     box_resample_strided,
 )
 from tempestsdr_tpu_torch.params import Params  # noqa: E402
-from tempestsdr_tpu_torch.sources.base import Source, SourceBlock  # noqa: E402
+from tempestsdr_tpu_torch.parallel import stack_states  # noqa: E402
+from tempestsdr_tpu_torch.sources.base import Source, SourceBlock, load_source  # noqa: E402
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
-from tempestsdr_tpu_torch.stream.pipeline import StepControls, make_step  # noqa: E402
+from tempestsdr_tpu_torch.stream import MultiSession  # noqa: E402
+from tempestsdr_tpu_torch.stream.pipeline import (  # noqa: E402
+    StepControls,
+    make_channels_step_hybrid,
+    make_step,
+)
+from tempestsdr_tpu_torch.stream import pipeline as pipeline_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream import session as session_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     Session,
@@ -105,7 +125,7 @@ from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     resolve_batch_blocks,
     warm_compile_step,
 )
-from tempestsdr_tpu_torch.stream.state import init_state  # noqa: E402
+from tempestsdr_tpu_torch.stream.state import init_state, state_leaves  # noqa: E402
 from tempestsdr_tpu_torch.utils.profiling import measure_dispatch_floor, profile_trace  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -136,6 +156,14 @@ GEOMETRIES = {
     "8MS/s": PipelineConfig(samplerate=8e6, height=628, refreshrate=60.0,
                             block_samples=450560),
 }
+# config 5 of the reference bench (bench.py:860-957): 8 independent emitters
+# at 16 MS/s, block 786432 (width 849, K == 4 frames a block)
+CH5 = PipelineConfig(samplerate=16e6, height=628, refreshrate=60.0, block_samples=786432)
+N_CH = 8
+CHANNEL_TOL = 1e-4  # hybrid (K1) against the plain per-channel steps, K2's against K1's, and the card's
+# hybrid step against the CPU's: frames max abs diff, the K1-class
+# card-vs-CPU tolerance (STEP_TOL["default"]): autogain scales K1's 2e-5
+# pixel differences by ~1/span
 
 
 def card():
@@ -454,7 +482,7 @@ class ReplayU8(Source):
                          n_samples=cfg.block_samples, start_sample=b * cfg.block_samples,
                          noise=noise, seed=b)
             self.blocks.append(np.clip(f * gain + 128.0, 0, 255).astype(np.uint8))
-        self.rate = cfg.samplerate
+        self.rate, self.raster = cfg.samplerate, raster
 
     def init(self, params):
         pass
@@ -927,7 +955,7 @@ def first_block(mode):
 def numbers_worth_a_line(build_s):
     """Phase 8: the dispatch floor, what "auto" resolves to, and the first
     block of a fresh process cold and warmed."""
-    floor = measure_dispatch_floor(DEV)
+    floor = measure_dispatch_floor(device=DEV)
     auto = {name: resolve_batch_blocks(cfg, "auto", device=DEV) for name, cfg in GEOMETRIES.items()}
     assert all(v >= 1 for v in auto.values())
     first = {}
@@ -941,6 +969,280 @@ def numbers_worth_a_line(build_s):
         first_block_ms_cold=[r["first_block_ms"] for r in first["cold"]],
         first_block_ms_warm=[r["first_block_ms"] for r in first["warm"]],
         warm_compile_step_ms=[r["warm_compile_step_ms"] for r in first["warm"]])))
+
+
+def channel_sources(cfg, n_ch, n_blocks):
+    """One pre-made uint8 source per channel, each with a raster of its own
+    line width (cfg.width // 2 + 8 c, as tests/test_stream.py:435-440 sets
+    them), so every channel carries a picture of its own."""
+    return [ReplayU8(cfg, render_test_pattern(cfg.height, cfg.width // 2 + 8 * c), n_blocks)
+            for c in range(n_ch)]
+
+
+def channel_blocks(srcs):
+    """The sources' blocks stacked per block: [C, 2n] uint8 arrays."""
+    return [np.stack(blks) for blks in zip(*(s.blocks for s in srcs))]
+
+
+CHANNEL_INTS = ("n_pixels", "frame_valid", "ac_plot_valid", "sync_dx", "sync_dy", "ac_calls",
+                "pll_locked")
+CHANNEL_CARRIES = ("phase_fix", "fill", "skip_pixels", "ac_fill", "frame_count")
+
+
+class PlainPerChannel:
+    """A comparator for the channel steps that shares none of their code:
+    the single-channel step with the plain strided resampler, on each
+    channel's own state. Called as a channel step is; returns the carries
+    and outputs that hold_channels reads, stacked over the channels."""
+
+    def __init__(self, cfg, n_ch, device):
+        self.step = make_step(cfg, Params(resampler="strided"), device=device)
+        self.states = [init_state(cfg, device=device) for _ in range(n_ch)]
+
+    def __call__(self, _stacked, raws, controls):
+        outs = []
+        for c, dropped in enumerate(controls.samples_dropped):
+            self.states[c], out = self.step(self.states[c], raws[c], StepControls(dropped, 0, 0.0))
+            outs.append(out)
+        stack = lambda objs, f: torch.stack([getattr(o, f) for o in objs])  # noqa: E731
+        return (types.SimpleNamespace(**{f: stack(self.states, f) for f in CHANNEL_CARRIES}),
+                types.SimpleNamespace(**{f: stack(outs, f) for f in CHANNEL_INTS + ("frame",)}))
+
+
+def hold_channels(name, steps, cfg, n_ch, blocks, tol, drop_channel=1, drop=37777):
+    """Two channel steps ((step, device) each) over the same blocks, channel
+    drop_channel losing `drop` samples before block 1: every integer output
+    and carry equal, frames finite and within tol. Returns the worst frame
+    difference."""
+    states = [stack_states(cfg, n_ch, device=d) for _, d in steps]
+    worst, emitted = 0.0, 0
+    for b, raws in enumerate(blocks):
+        dropped = [drop if (c == drop_channel and b == 1) else 0 for c in range(n_ch)]
+        outs = []
+        for i, (step, d) in enumerate(steps):
+            states[i], out = step(states[i], torch.from_numpy(raws).to(d),
+                                  StepControls(dropped, 0, 0.0))
+            outs.append(out)
+        a, c = outs
+        assert torch.isfinite(a.frame).all() and torch.isfinite(c.frame).all(), (name, b)
+        for f in CHANNEL_INTS:
+            assert torch.equal(getattr(a, f).cpu(), getattr(c, f).cpu()), (name, b, f)
+        for f in CHANNEL_CARRIES:
+            assert torch.equal(getattr(states[0], f).cpu(), getattr(states[1], f).cpu()), \
+                (name, b, f)
+        emitted += int(a.frame_valid.sum())
+        worst = max(worst, (a.frame.cpu() - c.frame.cpu()).abs().max().item())
+    assert emitted >= n_ch and worst <= tol, (name, emitted, worst)
+    return worst
+
+
+def multisession_run(cfg, srcs, n_blocks):
+    """One MultiSession.run over n_blocks on the card after a warm-up run
+    (a frame and a round on every channel). Counts are zeroed just before
+    the timed run and read just after."""
+    MultiSession(cfg, Params(), srcs, device=DEV).run(max_blocks=2)
+    n_ch = len(srcs)
+    first, last, plots = {}, {c: [] for c in range(n_ch)}, [0] * n_ch
+
+    def on_frame(c, f):
+        first.setdefault(c, f.copy())
+        last[c] = (last[c] + [f])[-1:]
+
+    def on_plot(c, ev):
+        plots[c] += 1
+        assert ev.values.shape[0] > 0 and np.isfinite(ev.values).all()
+
+    ms = MultiSession(cfg, Params(), srcs, on_frame=on_frame, on_plot=on_plot, device=DEV)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    total = ms.run(max_blocks=n_blocks)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = counts()
+    only(launches, box_resample_strided_cuda=n_ch * n_blocks)
+    whole = int(n_blocks * cfg.block_samples // (cfg.frame_pixels * cfg.samples_per_pixel))
+    assert total == sum(ms.frames_total) and min(ms.frames_total) >= whole, ms.frames_total
+    assert min(plots) >= 1, plots
+    corr = []
+    for c in range(n_ch):
+        f = last[c][0]
+        assert f.shape == (cfg.height, cfg.width) and np.isfinite(f).all()
+        raster = srcs[c].raster
+        corr.append(float(np.corrcoef(first[c].ravel(),
+                                      expected_frame(cfg, raster).ravel())[0, 1]))
+        for c2 in range(c):
+            assert np.abs(f - last[c2][0]).max() > 0.05, f"channels {c2} and {c} alike"
+    assert min(corr) > CORR_MIN, corr
+    return dict(blocks=n_blocks, frames=ms.frames_total, plots=plots, first_frame_corr=corr,
+                per_block_ms=dt / n_blocks * 1e3,
+                aggregate_msps=n_ch * cfg.block_samples * n_blocks / dt / 1e6,
+                realtime_msps=n_ch * cfg.samplerate / 1e6,
+                k1_launches=launches["box_resample_strided_cuda"])
+
+
+def _timed(owner, name, spent):
+    """Wrap owner.name so the host seconds spent in it add up in spent[name];
+    returns a function that puts the original back."""
+    orig = getattr(owner, name)
+
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return orig(*a, **k)
+        finally:
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, wrapper)
+    return lambda: setattr(owner, name, orig)
+
+
+def channels_split(cfg, blocks, n_ch):
+    """The hybrid step block by block, as MultiSession drives it, with the
+    host clock read between the stacked upload, the step and the frame-stack
+    download, and inside the step around the channels' device parts, the
+    one fetch (.tolist(), which waits for the card), the host parts and the
+    restacking; then the download alone, on an idle card, of one
+    [C, K, H, W] stack into pageable memory."""
+    step = make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV)
+    state = stack_states(cfg, n_ch, device=DEV)
+    split = dict(upload=[], step=[], download=[], sync=[])
+    inside = {}
+    emitting = 0
+    for raws in blocks:
+        torch.cuda.synchronize()
+        undo = [_timed(step.step, "device_part", inside), _timed(step.step, "host_part", inside),
+                _timed(torch.Tensor, "tolist", inside), _timed(pipeline_mod, "_assemble", inside)]
+        t0 = time.perf_counter()
+        raw = torch.from_numpy(np.ascontiguousarray(raws)).to(DEV)
+        t1 = time.perf_counter()
+        state, out = step(state, raw, StepControls())
+        t2 = time.perf_counter()
+        for u in undo:
+            u()
+        if any(any(h.frame_valid) for h in step.last):
+            out.frame.cpu().numpy()
+            emitting += 1
+        t3 = time.perf_counter()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for k, (a, b) in zip(split, ((t0, t1), (t1, t2), (t2, t3), (t3, t4))):
+            split[k].append((b - a) * 1e3)
+    alone = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.frame.cpu().numpy()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    total = sum(sum(v) for v in split.values())
+    in_step = {("fetch" if k == "tolist" else k): v * 1e3 / len(blocks) for k, v in inside.items()}
+    in_step["the rest (controls, views, ring write)"] = (
+        float(np.mean(split["step"])) - sum(in_step.values()))
+    return dict(blocks=len(blocks), emitting_blocks=emitting,
+                ms_per_block={k: float(np.mean(v)) for k, v in split.items()},
+                step_ms_per_block=in_step,
+                frame_stack_bytes=out.frame.numel() * 4,
+                download_alone_ms=alone, download_alone_ms_median=float(np.median(alone)),
+                download_share=float(np.median(alone)) * emitting / total)
+
+
+def profile_channels(cfg, srcs, n_blocks=4):
+    """profile_trace over a MultiSession run: device busy share, device ms
+    and device operations per block, the top device consumers."""
+    MultiSession(cfg, Params(), srcs, device=DEV).run(max_blocks=2)
+    ms = MultiSession(cfg, Params(), srcs, on_frame=lambda c, f: None, device=DEV)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            ms.run(max_blocks=n_blocks)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    assert events, "profile_trace recorded no device activity"
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(blocks=n_blocks, wall_ms_per_block=wall_ms / n_blocks,
+                device_ms_per_block=dev_ms / n_blocks, device_busy_share=dev_ms / wall_ms,
+                device_ops_per_block=sum(e.count for e in events) / n_blocks,
+                top=[(e.key[:60], e.self_device_time_total / 1e3 / n_blocks, e.count / n_blocks)
+                     for e in top])
+
+
+def simlive_session(cfg, n_blocks=8):
+    """A simlive source (a producer thread at real time into the native
+    ring) through Session on the card: frames, and its drops counted."""
+    src = load_source("simlive", f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} "
+                                 f"{cfg.samplerate} 0.02 pace=1 ring=8")
+    frames = []
+    sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append), device=DEV)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sess.run(max_blocks=n_blocks)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    only(counts(), box_resample_strided_cuda=n_blocks)
+    assert frames and all(f.shape == (cfg.height, cfg.width) and np.isfinite(f).all()
+                          for f in frames)
+    chunk = max(int(0.06 * cfg.samplerate), 1024)
+    assert sess.samples_dropped_total % chunk == 0, sess.samples_dropped_total
+    return dict(blocks=n_blocks, frames=len(frames), samples_dropped=sess.samples_dropped_total,
+                per_block_ms=dt / n_blocks * 1e3)
+
+
+def channels_phase(cfg=CH5, n_ch=N_CH, n_blocks=12):
+    """Phase 9: multi-target on the card at config 5's geometry. Returns the
+    K1 and K2 launch counts of its two channel paths."""
+    srcs = channel_sources(cfg, n_ch, n_blocks)
+    blocks = channel_blocks(srcs)
+    row = multisession_run(cfg, srcs, n_blocks)
+    print("channels MultiSession " + json.dumps(row))
+
+    # stacked demod against per-channel demod, bit for bit
+    steps = {m: make_channels_step_hybrid(cfg, Params(), n_ch, demod_mode=m, device=DEV)
+             for m in ("per-channel", "stacked")}
+    states = {m: stack_states(cfg, n_ch, device=DEV) for m in steps}
+    for raws in blocks[:4]:
+        outs = {}
+        for m, step in steps.items():
+            states[m], outs[m] = step(states[m], torch.from_numpy(raws).to(DEV), StepControls())
+        assert all(torch.equal(a, b) for a, b in zip(outs["per-channel"], outs["stacked"])), \
+            "stacked demod differs from per-channel demod"
+    assert all(torch.equal(a, b) for a, b in zip(*(state_leaves(s) for s in states.values())))
+    del steps, states, outs
+
+    # resampler="fused": K2 once per channel per block, held against the
+    # hybrid step with K1 (once per channel per block) on the same blocks
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    worst_fused = hold_channels(
+        "fused hybrid (K2) vs hybrid (K1)",
+        [(make_channels_step_hybrid(cfg, Params(resampler=r), n_ch, device=DEV), DEV)
+         for r in ("fused", "auto")], cfg, n_ch, blocks[:4], CHANNEL_TOL)
+    torch.cuda.synchronize()
+    k2 = counts()
+    only(k2, fused_demod_resample_cuda=n_ch * 4, box_resample_strided_cuda=n_ch * 4)
+
+    worst = hold_channels(
+        "hybrid (K1) vs per-channel steps (plain strided)",
+        [(make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV), DEV),
+         (PlainPerChannel(cfg, n_ch, DEV), DEV)], cfg, n_ch, blocks[:3], CHANNEL_TOL)
+    g8 = GEOMETRIES["8MS/s"]
+    worst_cpu = hold_channels(
+        "hybrid on the card vs on the CPU (8MS/s, C=3)",
+        [(make_channels_step_hybrid(g8, Params(), 3, device=d), d) for d in (DEV, "cpu")],
+        g8, 3, channel_blocks(channel_sources(g8, 3, 3)), CHANNEL_TOL)
+    print("channels held: " + json.dumps(dict(
+        stacked_demod_bit_identical=True, fused_k2_launches=k2["fused_demod_resample_cuda"],
+        fused_vs_k1_max_abs=worst_fused, hybrid_vs_plain_max_abs=worst,
+        card_vs_cpu_max_abs=worst_cpu)))
+    split = channels_split(cfg, blocks[:8], n_ch)
+    print("channels split " + json.dumps(split))
+    print("profile(8x16MS/s MultiSession, under the profiler) "
+          + json.dumps(profile_channels(cfg, srcs)))
+    print("simlive Session (8MS/s, native ring) "
+          + json.dumps(simlive_session(GEOMETRIES["8MS/s"])))
+    return {"K1": row["k1_launches"], "K2": k2["fused_demod_resample_cuda"]}
 
 
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
@@ -970,6 +1272,10 @@ def main():
     build.build(kernels.SOURCES)
     build_s = time.time() - t_start
     print(f"built kernels in {build_s:.1f} s")
+    t0 = time.time()
+    assert native.available(), "the native I/O runtime did not build"
+    print(f"built the native I/O runtime ({os.path.basename(native.lib_path())}) in "
+          f"{time.time() - t0:.1f} s")
     for name in kernels.SOURCES:
         print(build.BUILD_LOG.get(name, "").strip())
 
@@ -1011,6 +1317,7 @@ def main():
         live_controls(g64, tmp)
     assert superresolution(g64) == 1 << 21  # 2^23 stitched samples a cycle
     numbers_worth_a_line(build_s)
+    channel_launches = channels_phase()
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
     kern = []
@@ -1022,6 +1329,12 @@ def main():
             max_abs_err=max(e[kid] for e in errs.values()), ms=p["ms"], plain_ms=p["plain_ms"],
             bound_ms=p["bound_ms"], bound_by=p["bound_by"], library_ms=None))
         kern[-1].update(ms_warm=p["ms_warm"], ms_each_of_8=p["ms_each_of_8"])
+        if kid in channel_launches:
+            kern[-1]["launches_by_path"] = {
+                ("default Session 64MS/s" if kid == "K1" else "fused Session 64MS/s"):
+                    launches[kid],
+                ("MultiSession 8x16MS/s, 12 blocks" if kid == "K1"
+                 else "fused hybrid channels step 8x16MS/s, 4 blocks"): channel_launches[kid]}
         if kid == "K4":
             g = perf["64MS/s"]["gather"]
             kern[-1].update(gather_ms=g["ms"], gather_plain_ms=g["plain_ms"],

@@ -33,3 +33,5 @@ from .config import PipelineConfig  # noqa: E402,F401
 from .device import resolve_device  # noqa: E402,F401
 from .stream.session import Session, SessionCallbacks  # noqa: E402,F401
 from .api import TSDR  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -31,7 +31,8 @@ from .snapshot import save_frame
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tempestsdr-tpu-torch", description=__doc__)
-    p.add_argument("--source", default=None, help="source name (rawfile, synthetic, ...); "
+    p.add_argument("--source", default=None, help="source name (rawfile, synthetic, simlive, rtltcp, "
+                   "exec, cplugin); "
                    "required unless --use-prefs supplies a saved one")
     p.add_argument("--source-params", default="", help="opaque source parameter string")
     p.add_argument("--height", type=int, default=628, help="total lines incl. blanking")
@@ -319,7 +320,7 @@ def main(argv=None) -> int:
 
     if args.tui:
         raise NotImplementedError(
-            "not ported yet: --tui (ROADMAP.md Queue 1: remaining sources and tui.py)")
+            "not ported yet: --tui (ROADMAP.md Queue 1: tui.py)")
 
     import contextlib
 

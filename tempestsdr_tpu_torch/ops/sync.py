@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .gaussian import gaussian_blur_circular
@@ -152,6 +153,6 @@ def framerate_pll(pll: PLLState, vx, *, enabled: bool, max_delta: float | None =
     diff = torch.where(vx == 0, torch.zeros_like(diff), diff)
     delta = pll.refresh_delta - diff.to(torch.float32)
     if max_delta is not None:
-        lim = float(torch.tensor(max_delta, dtype=torch.float32))
+        lim = float(np.float32(max_delta))
         delta = torch.clamp(delta, -lim, lim)
     return PLLState(avg, locked, delta)

@@ -28,6 +28,13 @@ would clamp). K1 and K2 need no branch: their tap loops cover the whole
 PLL headroom. Autoshift needs the detected position as a roll shift, one more
 fetch per emitted frame, only with Params.autoshift.
 
+The step is two parts around that fetch: Step.device_part (drop
+compensation, the PLL rate, demod or K2, the FIR, the resample; it ends in
+the five integers) and Step.host_part (ring write and FFT round, sync skip,
+fold, emit and post-process, assembly; it starts from them). The channel
+steps below compose the same parts over a leading channel axis with ONE
+fetch for all channels per block.
+
 The step updates the fold buffer and the autocorrelation ring in place: it
 consumes the state it is given, like the JAX Session's donated step.
 """
@@ -68,12 +75,15 @@ from ..ops.sync import (
     find_the_sweet_spot,
     framerate_pll,
 )
-from .state import StepOutputs, StreamState
+from .state import StepOutputs, StreamState, state_from_leaves, state_leaves
 
 
 class StepControls(NamedTuple):
     """Per-block host inputs: plugin-reported drops, manual sync shift in
-    pixels (tsdr_sync), motion-blur coefficient."""
+    pixels (tsdr_sync), motion-blur coefficient. Host scalars for the
+    single-channel step; for the channel steps each field may also be a
+    length-C sequence, numpy array or tensor (a scalar applies to every
+    channel)."""
 
     samples_dropped: int = 0
     syncoffset: int = 0
@@ -89,6 +99,27 @@ class StepHost(NamedTuple):
     it fetches only what a callback needs)."""
 
     frame_valid: tuple  # one bool per emit slot
+    round_done: bool
+
+
+class DevicePart(NamedTuple):
+    """What Step.device_part leaves for the host part."""
+
+    env: torch.Tensor  # f32[n], the envelope the autocorrelation ring takes
+    pixels: torch.Tensor  # f32[max_pix]
+    n_out: torch.Tensor  # i32
+    phase2: torch.Tensor  # i64, the phase after the block
+    new_tail: torch.Tensor  # f32[taps]
+    fir_tail: torch.Tensor
+    ints: torch.Tensor  # i64[5]: n_out, drop_all, fill, skip_pixels, ac_fill
+
+
+class RingPlan(NamedTuple):
+    """The autocorrelation ring's bookkeeping for one block, on the host."""
+
+    fed: bool  # the block's envelope goes into the ring at fill0
+    fill0: int
+    ac_fill: int  # the fill after the block (and its round, if one completes)
     round_done: bool
 
 
@@ -125,7 +156,9 @@ def _fused_wanted(config: PipelineConfig, params: Params) -> bool:
     package's: no FIR (K2 resamples the raw envelope), box mode, the m == 2
     geometry and a block of a multiple of 4096 samples. The raw block's
     dtype (1-D uint8/int8) is checked per call."""
-    if params.resampler != "fused" or params.nearest_neighbour or params.fir_lowpass_taps:
+    if params.resampler != "fused":
+        return False
+    if params.nearest_neighbour or params.fir_lowpass_taps:
         return False
     plan = plan_strided(config.samples_per_pixel, config.resample_taps)
     return plan is not None and plan[0] == 2 and config.block_samples % 4096 == 0
@@ -257,10 +290,23 @@ class Step:
         return torch.full((), v, dtype=dtype, device=self.device)
 
     def __call__(self, state: StreamState, raw, controls: StepControls = StepControls()):
+        raw = torch.as_tensor(raw).to(self.device)
+        part = self.device_part(state, raw, controls)
+        # ---- the one host fetch of the block
+        host = part.ints.tolist()
+        new_state, outputs, last = self.host_part(state, part, host, controls)
+        self._per_thread.last = last
+        return new_state, outputs
+
+    def device_part(self, state: StreamState, raw, controls: StepControls,
+                    env=None) -> DevicePart:
+        """Everything up to the fetch, all launched without waiting: drop
+        compensation, the PLL-modulated rate, demod or K2, the optional FIR
+        and the resample. `env` is the block's envelope when the caller
+        demodulated it (the channel steps' stacked demod); raw is then
+        unused."""
         cfg, params = self.config, self.params
         n, taps, mp = cfg.block_samples, cfg.resample_taps, cfg.max_block_pixels
-        fp, h, w = cfg.frame_pixels, cfg.height, cfg.width
-        raw = torch.as_tensor(raw).to(self.device)
         dropped = int(controls.samples_dropped)
 
         # ---- drop compensation folded into the phase (dsp.c:313-368):
@@ -282,13 +328,14 @@ class Step:
         # FIR (the autocorrelation ring takes the pre-FIR envelope) and the
         # chosen resampler
         fir_tail = state.fir_tail
-        if self.fused and raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8):
+        if env is None and self.fused and raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8):
             env, pixels, n_out, phase2 = fused_demod_resample_cuda(
                 raw, state.tail, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
                 inv_nominal=cfg.samples_per_pixel)
             new_tail = env[n - taps:].clone()
         else:
-            env = am_demod(normalize_iq(raw))
+            if env is None:
+                env = am_demod(normalize_iq(raw))
             env_rs = env
             if self.fir_taps is not None:
                 env_rs, fir_tail = fir_apply_block(env, state.fir_tail, self.fir_taps)
@@ -302,28 +349,60 @@ class Step:
                     inv_nominal=cfg.samples_per_pixel)
             new_tail = x_ext[x_ext.shape[0] - taps:].clone()
 
-        # ---- the one host fetch of the block
         drop_all = phase >= (n << FRAC_BITS)
-        n_out_h, drop_all_h, fill_h, skip_h, ac_fill_h = torch.stack([
+        ints = torch.stack([
             n_out.to(torch.int64), drop_all.to(torch.int64), state.fill.to(torch.int64),
             state.skip_pixels.to(torch.int64), state.ac_fill.to(torch.int64),
-        ]).tolist()
+        ])
+        return DevicePart(env, pixels, n_out, phase2, new_tail, fir_tail, ints)
+
+    def ring_plan(self, dropped: int, drop_all: int, ac_fill: int) -> RingPlan:
+        """The ring's bookkeeping from host values (frameratedetector.c:
+        215-230): a drop purges the ring, a block past the drop is not fed,
+        a round completes when the fill reaches ac_round_samples."""
+        if not self.run_autocorr:
+            return RingPlan(False, ac_fill, ac_fill, False)
+        purge = dropped != 0
+        fed = not drop_all and not purge
+        fill0 = 0 if purge else ac_fill
+        ac_fill = fill0 + self.config.block_samples if fed else fill0
+        round_done = ac_fill >= self.config.ac_round_samples
+        if round_done:
+            ac_fill -= self.config.ac_round_samples
+        return RingPlan(fed, fill0, ac_fill, round_done)
+
+    def write_ring(self, ac_buf, fill0: int, env) -> None:
+        """env [..., n] into ac_buf [..., L] at fill0, in place: one ring, or
+        a stack of rings fed at one fill (the channel steps' shared write)."""
+        n = self.config.block_samples
+        _check_range(fill0, n, ac_buf.shape[-1], "autocorrelation ring write")
+        ac_buf[..., fill0:fill0 + n] = env
+
+    def host_part(self, state: StreamState, part: DevicePart, host, controls: StepControls,
+                  plan: RingPlan | None = None, tensors: bool = True):
+        """Everything after the fetch, given its five integers `host`: the
+        ring write (unless `plan` says the caller made it) and FFT round, the
+        sync skip, the fold, every completed frame's post-process, and the
+        new state and outputs. Returns (state', StepOutputs, StepHost).
+
+        tensors=False leaves what the host knows as host values for a caller
+        that stacks channels (skip_pixels, fill, ac_fill: ints; frame_valid,
+        ac_plot_valid: bools, one per slot for K > 1; frame: a tensor or
+        None per slot; refreshrate: None)."""
+        cfg, params = self.config, self.params
+        mp, fp, h, w = cfg.max_block_pixels, cfg.frame_pixels, cfg.height, cfg.width
+        n_out_h, drop_all_h, fill_h, skip_h, ac_fill_h = host
+        pixels = part.pixels
 
         # ---- autocorrelation ring (frameratedetector.c:215-230)
-        ac_buf, ac_fill, round_done = state.ac_buf, ac_fill_h, False
+        ac_buf = state.ac_buf
         ac = (state.ac_avg_frame, state.ac_avg_line, state.ac_calls, state.ac_last_full)
-        if self.run_autocorr:
-            purge = dropped != 0
-            fed = not drop_all_h and not purge
-            ac_fill = 0 if purge else ac_fill_h
-            if fed:
-                _check_range(ac_fill, n, ac_buf.shape[0], "autocorrelation ring write")
-                ac_buf[ac_fill:ac_fill + n] = env
-                ac_fill += n
-            round_done = ac_fill >= cfg.ac_round_samples
-            if round_done:
-                ac_fill -= cfg.ac_round_samples
-                ac = self._ac_round(ac_buf, *ac)
+        if plan is None:
+            plan = self.ring_plan(int(controls.samples_dropped), drop_all_h, ac_fill_h)
+            if plan.fed:
+                self.write_ring(ac_buf, plan.fill0, part.env)
+        if plan.round_done:
+            ac = self._ac_round(ac_buf, *ac)
 
         # ---- manual sync shift as a pixel skip (tsdr_sync)
         pend = (skip_h + int(controls.syncoffset)) % fp
@@ -363,13 +442,20 @@ class Step:
         fill_new = fill2 - emitted * fp
         screen, ag, sync_x, sync_y, pll = post
 
-        zeros = lambda: torch.zeros((h, w), dtype=torch.float32, device=self.device)  # noqa: E731
-        if k_frames == 1:
-            frame_out = frames[0] if valid[0] else zeros()
-            frame_valid = self._full(valid[0], torch.bool)
+        if tensors:
+            scalar = self._full
+            zeros = lambda: torch.zeros((h, w), dtype=torch.float32, device=self.device)  # noqa: E731
+            if k_frames == 1:
+                frame_out = frames[0] if valid[0] else zeros()
+                frame_valid = self._full(valid[0], torch.bool)
+            else:
+                frame_out = torch.stack([f if f is not None else zeros() for f in frames])
+                frame_valid = torch.tensor(valid, dtype=torch.bool).to(self.device)
+            refreshrate = self.rr_f32 + pll.refresh_delta
         else:
-            frame_out = torch.stack([f if f is not None else zeros() for f in frames])
-            frame_valid = torch.tensor(valid, dtype=torch.bool).to(self.device)
+            scalar = lambda v, dtype: v  # noqa: E731
+            frame_out, frame_valid = (frames[0], valid[0]) if k_frames == 1 else (frames, valid)
+            refreshrate = None
 
         ac_avg_frame, ac_avg_line, ac_calls, ac_last_full = ac
         runs, frame_count = state.runs, state.frame_count
@@ -377,11 +463,11 @@ class Step:
             runs = runs + emitted
             frame_count = frame_count + emitted
         new_state = StreamState(
-            phase_fix=phase2,
-            tail=new_tail,
-            fir_tail=fir_tail,
-            skip_pixels=self._full(pend, torch.int32),
-            fill=self._full(fill_new, torch.int32),
+            phase_fix=part.phase2,
+            tail=part.new_tail,
+            fir_tail=part.fir_tail,
+            skip_pixels=scalar(pend, torch.int32),
+            fill=scalar(fill_new, torch.int32),
             framebuf=framebuf,
             screenbuffer=screen,
             ag_min=ag[0],
@@ -393,7 +479,7 @@ class Step:
             runs=runs,
             frame_count=frame_count,
             ac_buf=ac_buf,
-            ac_fill=self._full(ac_fill, torch.int32),
+            ac_fill=scalar(plan.ac_fill, torch.int32),
             ac_avg_frame=ac_avg_frame,
             ac_avg_line=ac_avg_line,
             ac_calls=ac_calls,
@@ -402,8 +488,8 @@ class Step:
         outputs = StepOutputs(
             frame=frame_out,
             frame_valid=frame_valid,
-            n_pixels=n_out,
-            refreshrate=self.rr_f32 + pll.refresh_delta,
+            n_pixels=part.n_out,
+            refreshrate=refreshrate,
             pll_locked=pll.locked,
             ag_min=ag[0],
             ag_max=ag[1],
@@ -412,11 +498,10 @@ class Step:
             sync_dy=sync_y.dx,
             ac_frame_plot=ac_avg_frame,
             ac_line_plot=ac_avg_line,
-            ac_plot_valid=self._full(round_done, torch.bool),
+            ac_plot_valid=scalar(plan.round_done, torch.bool),
             ac_calls=ac_calls,
         )
-        self._per_thread.last = StepHost(tuple(valid), round_done)
-        return new_state, outputs
+        return new_state, outputs, StepHost(tuple(valid), plan.round_done)
 
     def warm(self, state: StreamState) -> None:
         """Run, on `state` and for nothing, the two branches a first block
@@ -453,8 +538,227 @@ class Step:
 def make_step(config: PipelineConfig, params: Params, device="cuda", batched: bool = False) -> Step:
     """Build the per-block step for one channel:
     step(state, raw [2*block_samples] any supported dtype, controls) ->
-    (state', StepOutputs). batched steps (a channel axis) are not ported yet."""
-    if batched:
-        raise NotImplementedError(
-            "not ported yet: batched (ROADMAP.md Queue 1: multi-channel)")
+    (state', StepOutputs). batched is accepted for the JAX package's API
+    and changes nothing: its batched step exists for vmap, which the port
+    does not use, so the port's runs the same kernels as the plain one."""
     return Step(config, params, device)
+
+
+# ---- the channel steps -----------------------------------------------------
+# Each takes a stacked state (every leaf with a leading channel axis C, rows
+# owning their memory: parallel.channels.stack_states), raws [C, 2n] and
+# per-channel controls, and returns the stacked state and stacked
+# StepOutputs: frame [C, H, W] and frame_valid [C] (K == 1), or [C, K, H, W]
+# and [C, K]. A channel is stepped through views of its rows, so its fold
+# buffer and ring are written in place; every other leaf it returns goes back
+# with one torch.stack per leaf (a leaf no channel changed stays the stacked
+# tensor it was), and what the host knows (fills, flags) with one host ->
+# device copy per leaf. `last` is a tuple of one StepHost per channel.
+
+
+def _per_channel(value, n: int) -> list:
+    """A StepControls field for n channels: a length-n sequence, array or
+    tensor, or one scalar for all (a CUDA tensor costs a fetch)."""
+    if isinstance(value, (torch.Tensor, np.ndarray)):
+        value = value.tolist()
+    if isinstance(value, (list, tuple)):
+        if len(value) != n:
+            raise ValueError(f"a control has {len(value)} values for {n} channels")
+        return list(value)
+    return [value] * n
+
+
+def _channel_controls(controls: StepControls, n: int) -> list:
+    return [StepControls(*vals) for vals in zip(*(_per_channel(v, n) for v in controls))]
+
+
+def _channel_rows(states: StreamState, n: int) -> list:
+    """Per channel, a StreamState of views of that channel's rows."""
+    leaves = state_leaves(states)
+    return [state_from_leaves([x[c] for x in leaves]) for c in range(n)]
+
+
+class _Restack:
+    """Puts per-channel leaves back on a channel axis. A set of leaves that
+    are each channel's own row view of one stacked tensor is that tensor (no
+    launch); tensors are stacked once (the same set twice, once); host values
+    go up in one copy (non-blocking, so no wait on the card)."""
+
+    def __init__(self, stacked_leaves, rows, device):
+        self.device = device
+        self.origin = {}
+        for i, parent in enumerate(stacked_leaves):
+            for c, row in enumerate(rows):
+                self.origin[id(state_leaves(row)[i])] = (i, c)
+        self.parents = stacked_leaves
+        self.memo = {}
+
+    def __call__(self, vals, dtype=None):
+        if all(isinstance(v, torch.Tensor) for v in vals):
+            where = [self.origin.get(id(v)) for v in vals]
+            if all(o is not None and o == (where[0][0], c) for c, o in enumerate(where)):
+                return self.parents[where[0][0]]
+            key = tuple(id(v) for v in vals)
+            if key not in self.memo:
+                self.memo[key] = torch.stack(vals)
+            return self.memo[key]
+        host = torch.tensor(vals, dtype=dtype)
+        return host.to(self.device, non_blocking=True) if self.device.type == "cuda" else host
+
+
+def _assemble(step: Step, states: StreamState, rows: list, results: list):
+    """(stacked state', stacked StepOutputs) from per-channel results of
+    host_part(tensors=False)."""
+    cfg = step.config
+    restack = _Restack(state_leaves(states), rows, step.device)
+    per_leaf = zip(*(state_leaves(r[0]) for r in results))
+    new_states = state_from_leaves([
+        restack(list(vals), parent.dtype)
+        for vals, parent in zip(per_leaf, state_leaves(states))])
+    fields = {}
+    for name, vals in zip(StepOutputs._fields, zip(*(r[1] for r in results))):
+        vals = list(vals)
+        if name == "frame" and not all(isinstance(v, torch.Tensor) for v in vals):
+            k = cfg.frames_per_block
+            frames = torch.zeros((len(vals),) + ((k,) if k > 1 else ()) + (cfg.height, cfg.width),
+                                 dtype=torch.float32, device=step.device)
+            for c, f in enumerate(vals):
+                for slot, fk in enumerate(f if k > 1 else [f]):
+                    if fk is not None:
+                        (frames[c, slot] if k > 1 else frames[c]).copy_(fk)
+            fields[name] = frames
+        elif name == "refreshrate":
+            fields[name] = step.rr_f32 + new_states.pll.refresh_delta
+        else:
+            fields[name] = restack(vals, torch.bool)
+    return new_states, StepOutputs(**fields)
+
+
+class _ChannelsStep:
+    """Every channel step: each channel's device part, ONE host fetch of the
+    [C, 5] integers for all channels, the ring writes (with shared_ring, one
+    2-D write into the stacked rings when every channel is fed at one fill;
+    else one per fed channel), then each channel's host part, which runs a
+    round or a frame's post-process only for the channels whose integers say
+    so. n_channels=None takes the count from raws."""
+
+    def __init__(self, config: PipelineConfig, params: Params, n_channels: int | None, device,
+                 *, shared_ring: bool = False, stacked_demod: bool = False):
+        self.step = Step(config, params, device)
+        self.config, self.params, self.device = config, params, self.step.device
+        self.n_channels = n_channels
+        self.shared_ring, self.stacked_demod = shared_ring, stacked_demod
+        self._per_thread = threading.local()
+
+    @property
+    def last(self):
+        return getattr(self._per_thread, "last", None)
+
+    def __call__(self, states: StreamState, raws, controls: StepControls = StepControls()):
+        step = self.step
+        raws = torch.as_tensor(raws).to(self.device)
+        n_ch = raws.shape[0] if self.n_channels is None else self.n_channels
+        if raws.dim() != 2 or raws.shape[0] != n_ch:
+            raise ValueError(f"raws must be [{n_ch}, 2n], got {tuple(raws.shape)}")
+        ctrls = _channel_controls(controls, n_ch)
+        rows = _channel_rows(states, n_ch)
+        feed = None
+        if self.stacked_demod:
+            # one demod over every channel's block: each row is 2n values,
+            # so flattening keeps every I/Q pair together (bit-identical to
+            # per-channel demod, an elementwise computation)
+            feed = am_demod(normalize_iq(raws.reshape(-1))).reshape(n_ch, -1)
+        parts = [step.device_part(rows[c], raws[c], ctrls[c], None if feed is None else feed[c])
+                 for c in range(n_ch)]
+        # ---- the one host fetch of the block, for every channel
+        host = torch.stack([p.ints for p in parts]).tolist()
+        plans = [None] * n_ch
+        if self.shared_ring and step.run_autocorr:
+            plans = [step.ring_plan(int(ctrls[c].samples_dropped), host[c][1], host[c][4])
+                     for c in range(n_ch)]
+            if all(p.fed for p in plans) and len({p.fill0 for p in plans}) == 1:
+                envs = feed if feed is not None else torch.stack([p.env for p in parts])
+                step.write_ring(states.ac_buf, plans[0].fill0, envs)
+            else:  # a drop desynchronised the fills: per-channel writes
+                for c, p in enumerate(plans):
+                    if p.fed:
+                        step.write_ring(rows[c].ac_buf, p.fill0, parts[c].env)
+        results = [step.host_part(rows[c], parts[c], host[c], ctrls[c], plans[c], tensors=False)
+                   for c in range(n_ch)]
+        self._per_thread.last = tuple(r[2] for r in results)
+        return _assemble(step, states, rows, results)
+
+
+def make_channels_step_hybrid(config: PipelineConfig, params: Params, n_channels: int, *,
+                              cond_mode: str = "unrolled", demod_mode: str = "per-channel",
+                              device="cuda"):
+    """The production multi-channel step (MultiSession's): per channel the
+    single-channel device part (K1 at m == 2, or K2 with resampler="fused"),
+    ONE packed host fetch of every channel's five integers, the ring write as
+    one 2-D write when every channel is fed at one fill (per-channel writes
+    after a drop desynchronises them), then per channel the host part.
+
+    demod_mode="stacked" demodulates all channels' raw blocks in one call
+    (bit-identical to per-channel demod); resampler="fused" forces
+    per-channel demod, since K2 takes the raw bytes.
+
+    cond_mode is validated for API parity with the JAX package, where it
+    chooses between real per-channel branches ("unrolled") and any()-gated
+    bodies ("batched"), and it changes nothing here: the host knows from the
+    fetch which channels crossed a boundary, so the bodies run only for
+    those. "batched" keeps the reference's one-frame-per-block error."""
+    if cond_mode not in ("batched", "unrolled"):
+        raise ValueError(f"unknown cond_mode {cond_mode!r}")
+    if cond_mode == "batched" and config.frames_per_block > 1:
+        raise ValueError(
+            "cond_mode='batched' supports one frame per block; use the "
+            "default cond_mode='unrolled' for multi-frame blocks")
+    if demod_mode not in ("per-channel", "stacked"):
+        raise ValueError(f"unknown demod_mode {demod_mode!r}")
+    return _ChannelsStep(config, params, n_channels, device, shared_ring=True,
+                         stacked_demod=demod_mode == "stacked" and params.resampler != "fused")
+
+
+def make_channels_step_unrolled(config: PipelineConfig, params: Params, n_channels: int,
+                                device="cuda"):
+    """The JAX package's unrolled step (the single-channel step repeated over
+    the channels' rows): here the hybrid step with per-channel ring writes."""
+    return _ChannelsStep(config, params, n_channels, device)
+
+
+def make_channels_step(config: PipelineConfig, params: Params, n_channels: int = 0,
+                       device="cuda"):
+    """The JAX package's gated multi-channel step: here the hybrid step with
+    per-channel ring writes. Keeps the reference's one-frame-per-block
+    limit. n_channels=0 takes the count from raws, as the reference's vmap
+    does."""
+    if config.frames_per_block > 1:
+        raise ValueError(
+            "make_channels_step supports one frame per block; use "
+            "make_channels_step_hybrid/unrolled for multi-frame blocks")
+    return _ChannelsStep(config, params, n_channels or None, device)
+
+
+def make_multi_step(config: PipelineConfig, params: Params, device="cuda"):
+    """The JAX package's vmap(step) over a channel axis, the count taken
+    from raws: here the hybrid step with per-channel ring writes."""
+    return _ChannelsStep(config, params, None, device)
+
+
+def make_scan_runner(config: PipelineConfig, params: Params, n_blocks: int, device="cuda"):
+    """run(state, raw_blocks [n_blocks, 2n], controls) -> (state, outputs
+    stacked over the blocks, as lax.scan stacks them). Every block gets the
+    same controls, as in the reference. A plain loop of the step."""
+    step = make_step(config, params, device)
+
+    def run(state, raw_blocks, controls: StepControls = StepControls()):
+        raw_blocks = torch.as_tensor(raw_blocks).to(step.device)
+        if raw_blocks.shape[0] != n_blocks:
+            raise ValueError(f"{raw_blocks.shape[0]} blocks, the runner takes {n_blocks}")
+        outs = []
+        for raw in raw_blocks:
+            state, out = step(state, raw, controls)
+            outs.append(out)
+        return state, StepOutputs(*(torch.stack(list(vals)) for vals in zip(*outs)))
+
+    return run

@@ -41,7 +41,7 @@ def profile_trace(logdir: str):
 _FLOOR_CACHE: dict = {}
 
 
-def measure_dispatch_floor(device="cuda", repeats: int = 3) -> float:
+def measure_dispatch_floor(repeats: int = 3, *, device="cuda") -> float:
     """Measured per-dispatch floor of `device`, seconds: one small kernel
     launch (x + 1 on a scalar) plus the host fetch of its result (.item()),
     the round trip every block of a session pays at least once (the step's
@@ -87,7 +87,7 @@ def auto_batch_blocks(config, *, latency_s: float = 0.25,
     floor_s=None measures the floor of `device`.
     """
     if floor_s is None:
-        floor_s = measure_dispatch_floor(device)
+        floor_s = measure_dispatch_floor(device=device)
     block_s = config.block_samples / config.samplerate
     want = -(-floor_ratio * floor_s // block_s)  # ceil
     cap = (latency_s - floor_s) / block_s

@@ -1,0 +1,195 @@
+"""The port's MultiSession (tempestsdr_tpu_torch.stream.MultiSession)
+against the JAX package's on the CPU, with the scenarios of
+tests/test_stream.py:428-474, its host fetches counted, and the port's
+multi-target example run end to end."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from tempestsdr_tpu.config import PipelineConfig as JConfig
+from tempestsdr_tpu.errors import TSDRError as JError, TSDRStatus as JStatus
+from tempestsdr_tpu.params import Params as JParams
+from tempestsdr_tpu.sources.synthetic import SyntheticSource as JSynthetic
+from tempestsdr_tpu.stream.multisession import MultiSession as JMultiSession
+
+from tempestsdr_tpu_torch.config import PipelineConfig
+from tempestsdr_tpu_torch.errors import TSDRError, TSDRStatus
+from tempestsdr_tpu_torch.params import Params
+from tempestsdr_tpu_torch.sources.base import Source, SourceBlock
+from tempestsdr_tpu_torch.sources.synthetic import SyntheticSource, render_test_pattern, synth_iq
+from tempestsdr_tpu_torch.stream import MultiSession
+
+from test_examples import EX, run_example
+
+SR, LINES, TWIDTH, REFRESH = 1e6, 100, 200, 50.0
+C = 3
+FRAME_ATOL, FRAME_RTOL = 1e-5, 1e-6  # tests/test_torch_stream.py:45-47
+AC_RTOL = 1e-5
+
+
+def _sources(cls, samplerates=None):
+    out = []
+    for c in range(C):
+        s = cls()
+        # different line width per channel -> visibly different frame content
+        s.init(f"{LINES} {TWIDTH + 8 * c} {REFRESH} {(samplerates or [SR] * C)[c]} 0.01")
+        out.append(s)
+    return out
+
+
+def _run(cls_ms, cls_cfg, cls_params, cls_src, block=8192, **kw):
+    cfg = cls_cfg(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=block)
+    got = {c: [] for c in range(C)}
+    plots = []
+    ms = cls_ms(cfg, cls_params(framerate_pll=False), _sources(cls_src),
+                on_frame=lambda c, f: got[c].append(f),
+                on_plot=lambda c, ev: plots.append((c, ev)), **kw)
+    total = ms.run(max_frames=4 * C + 2)
+    return ms, cfg, total, got, plots
+
+
+@pytest.mark.parametrize("block", [8192, 49152])
+def test_multisession_matches_jax(block):
+    """Three sources of different content through both MultiSessions: the
+    same frames per channel in the same order (K == 1 and K == 3), the same
+    plot events, totals and drop counts; each channel carries its own raster
+    (tests/test_stream.py:428-460)."""
+    jms, _, jtotal, jgot, jplots = _run(JMultiSession, JConfig, JParams, JSynthetic, block)
+    tms, cfg, total, got, plots = _run(MultiSession, PipelineConfig, Params, SyntheticSource, block,
+                                       device="cpu")
+    assert total == jtotal >= 4 * C and tms.frames_total == jms.frames_total
+    assert tms.samples_dropped_total == jms.samples_dropped_total == [0] * C
+    for c in range(C):
+        assert len(got[c]) == len(jgot[c]) >= 3
+        for a, b in zip(got[c], jgot[c]):
+            np.testing.assert_allclose(a, b, rtol=FRAME_RTOL, atol=FRAME_ATOL)
+    assert [(c, ev.plot_id, ev.offset) for c, ev in plots] == [
+        (c, ev.plot_id, ev.offset) for c, ev in jplots]
+    assert plots, "no estimation rounds fired"
+    for (_, a), (_, b) in zip(plots, jplots):
+        np.testing.assert_allclose(a.values, b.values, rtol=0,
+                                   atol=AC_RTOL * np.abs(b.values).max())
+    a, b = got[0][-1], got[1][-1]
+    assert a.shape == b.shape == (LINES, cfg.width) and np.abs(a - b).max() > 0.05
+    for c in range(C):
+        assert np.corrcoef(got[c][-1].ravel(), got[c][-2].ravel())[0, 1] > 0.9
+
+
+def test_multisession_rejects_mismatched_samplerate():
+    """WRONG_VIDEOPARAMS from both packages for a source at another rate."""
+    for ms, cfg_cls, params, src_cls, err, status, kw in (
+            (JMultiSession, JConfig, JParams, JSynthetic, JError, JStatus, {}),
+            (MultiSession, PipelineConfig, Params, SyntheticSource, TSDRError, TSDRStatus,
+             {"device": "cpu"})):
+        cfg = cfg_cls(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192,
+                      autocorr=False)
+        with pytest.raises(err) as ei:
+            ms(cfg, params(framerate_pll=False), _sources(src_cls, [SR, 2 * SR, SR]), **kw)
+        assert ei.value.status == status.WRONG_VIDEOPARAMS
+        with pytest.raises(err) as ei:
+            ms(cfg, params(), [], **kw)
+        assert ei.value.status == status.ERR_PLUGIN
+
+
+class _Droppy(Source):
+    """A synthetic channel that reports `drop` samples lost before block 3."""
+
+    def __init__(self, twidth, drop):
+        self.raster = render_test_pattern(LINES, twidth)
+        self.twidth, self.drop, self.working = twidth, drop, True
+
+    def init(self, params):
+        pass
+
+    def name(self):
+        return "droppy"
+
+    def samplerate(self):
+        return SR
+
+    def stream(self, block_samples):
+        pos, b = 0, 0
+        while self.working:
+            dropped = self.drop if b == 3 else 0
+            pos += dropped
+            yield SourceBlock(synth_iq(self.raster, samplerate=SR,
+                                       pixelclock=LINES * self.twidth * REFRESH,
+                                       n_samples=block_samples, start_sample=pos, noise=0.01,
+                                       dtype=np.uint8), dropped)
+            pos += block_samples
+            b += 1
+
+    def stop(self):
+        self.working = False
+
+
+def test_multisession_fetches_and_drops(monkeypatch):
+    """Per block one fetch (the step's [C, 5] .tolist()); on a block where
+    a channel completed a frame, one download of the frame stack; on a block
+    where a round completed, one of the plots. Drops stay per channel."""
+    cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192)
+    got = {c: 0 for c in range(C)}
+    n_plots = []
+    ms = MultiSession(cfg, Params(), [_Droppy(TWIDTH + 8 * c, 5000 * (c == 1)) for c in range(C)],
+                      on_frame=lambda c, f: got.__setitem__(c, got[c] + 1),
+                      on_plot=lambda c, ev: n_plots.append(c), device="cpu")
+    calls = []
+    for name in ("tolist", "item", "cpu", "__bool__", "__int__", "__float__"):
+        orig = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _orig=orig, _name=name, **k):
+            calls.append(_name)
+            return _orig(self, *a, **k)
+
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    step, marks, hosts = ms._step, [], []
+    real_call = type(step).__call__
+
+    def spy(self, *a, **k):
+        marks.append(len(calls))
+        out = real_call(self, *a, **k)
+        hosts.append(self.last)
+        return out
+
+    monkeypatch.setattr(type(step), "__call__", spy)
+    total = ms.run(max_blocks=20)
+    marks.append(len(calls))
+    monkeypatch.undo()
+    assert ms.samples_dropped_total == [0, 5000, 0]
+    assert sum(got.values()) == total == sum(ms.frames_total) and min(got.values()) >= 3
+    assert n_plots and set(n_plots) == set(range(C))
+    emitting = rounds = 0
+    for b, host in enumerate(hosts):
+        block_calls = calls[marks[b]:marks[b + 1]]
+        emit = any(any(h.frame_valid) for h in host)
+        done = any(h.round_done for h in host)
+        assert block_calls == ["tolist"] + ["cpu"] * (emit + done), (b, block_calls)
+        emitting += emit
+        rounds += done
+    assert emitting >= 5 and rounds >= 1
+
+
+def test_multisession_async_start_stop():
+    cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192,
+                         autocorr=False)
+    frames = []
+    ms = MultiSession(cfg, Params(framerate_pll=False), _sources(SyntheticSource),
+                      on_frame=lambda c, f: frames.append(c), device="cpu")
+    ms.start_async()
+    import time
+
+    deadline = time.time() + 60
+    while len(frames) < 2 * C and time.time() < deadline:
+        time.sleep(0.01)
+    ms.stop()
+    assert not ms.is_running and len(frames) >= 2 * C
+
+
+def test_example_torch_multi_target(tmp_path):
+    out = run_example([os.path.join(EX, "torch_multi_target.py"), "3", "--device", "cpu"],
+                      tmp_path)
+    assert "3 targets on cpu, frames per channel: [4, 4, 4]" in out, out
+    assert "target 2:" in out, out

@@ -423,11 +423,11 @@ def test_resolve_batch_blocks_and_auto_sizing():
 
 
 def test_dispatch_floor_meter_and_trace(tmp_path):
-    """measure_dispatch_floor("cpu") is a positive time, cached per device;
+    """measure_dispatch_floor(device="cpu") is a positive time, cached per device;
     IngestMeter counts like the JAX package's; profile_trace writes a Chrome
     trace of the enclosed run."""
-    floor = tprofiling.measure_dispatch_floor("cpu")
-    assert 0 < floor < 1.0 and tprofiling.measure_dispatch_floor("cpu") == floor
+    floor = tprofiling.measure_dispatch_floor(device="cpu")
+    assert 0 < floor < 1.0 and tprofiling.measure_dispatch_floor(device="cpu") == floor
     meters = (tprofiling.IngestMeter(), jprofiling.IngestMeter())
     for m in meters:
         for _ in range(3):

@@ -189,12 +189,6 @@ def test_unported_params_raise(flags, exc):
     assert make_step(tcfg, Params(superresolution=True), device="cpu").params.superresolution
 
 
-def test_batched_step_raises():
-    _, tcfg = _configs(8192)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_step(tcfg, Params(), device="cpu", batched=True)
-
-
 def _session_pair(block=8192):
     jcfg, tcfg = _configs(block)
     spec = f"{LINES} {TWIDTH} {REFRESH} {SR} 0.01"
@@ -351,9 +345,16 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     root = os.path.join(os.path.dirname(__file__), "..")
     files = [os.path.join(root, "chip_smoke.py")]
+    files += [os.path.join(root, "examples", n) for n in os.listdir(os.path.join(root, "examples"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for d, _, names in os.walk(os.path.join(root, "tempestsdr_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    walked = {os.path.relpath(p, root).replace(os.sep, "/") for p in files}
+    for mod in ("parallel/__init__", "parallel/channels", "native/__init__", "sources/live",
+                "sources/rtltcp", "sources/subproc", "sources/cplugin", "stream/multisession"):
+        assert f"tempestsdr_tpu_torch/{mod}.py" in walked, mod
+    assert "examples/torch_multi_target.py" in walked
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
