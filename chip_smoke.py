@@ -98,17 +98,28 @@ from tempestsdr_tpu_torch.kernels.fused_demod_resample import (  # noqa: E402
     fused_demod_resample_u16_cuda,
 )
 from tempestsdr_tpu_torch.kernels.strided_resample import (  # noqa: E402
+    box_resample_range_strided_cuda,
     box_resample_strided_cuda,
     k1_margin,
     launch_copy_floor,
     launch_noop,
+    range_launch,
 )
 from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
     box_resample_block_chunked,
+    box_resample_range_strided,
     box_resample_strided,
+    resample_counts,
 )
 from tempestsdr_tpu_torch.params import Params  # noqa: E402
-from tempestsdr_tpu_torch.parallel import stack_states  # noqa: E402
+from tempestsdr_tpu_torch.parallel import (  # noqa: E402
+    make_channel_step,
+    make_grid_step,
+    make_mesh,
+    make_time_sharded_step,
+    stack_states,
+)
+from tempestsdr_tpu_torch.parallel.launch import RankPool  # noqa: E402
 from tempestsdr_tpu_torch.sources.base import Source, SourceBlock, load_source  # noqa: E402
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
 from tempestsdr_tpu_torch.stream import MultiSession  # noqa: E402
@@ -1245,6 +1256,326 @@ def channels_phase(cfg=CH5, n_ch=N_CH, n_blocks=12):
     return {"K1": row["k1_launches"], "K2": k2["fused_demod_resample_cuda"]}
 
 
+# ---- phase 10: the sharded receiver over torch.distributed ----------------
+# One group of T_RANKS gloo ranks on this one card (RankPool, "spawn"),
+# started once for every sharded check. The parent runs each reference (the
+# single-card step, the single-process hybrid channels step) on the same
+# blocks first and writes its frames to files; each rank holds its replicated
+# or local outputs against them and reports integers, errors, a digest of
+# everything it returned, its launch counts and its per-block host ms.
+
+T_RANKS = 4
+SHARD_TOL = 2e-3  # the sharded step's frames against the single-card step's
+# (tests/test_parallel.py:64-66): K1's range entry against its block entry
+# differs like K1 against its plain version, scaled by autogain
+REF_FIELDS = ("n_pixels", "frame_valid", "ac_calls")
+REF_CARRIES = ("phase_fix", "fill", "frame_count")
+
+
+def _ints(state, out):
+    """The integers a sharded run must reproduce exactly, one block."""
+    return ([getattr(out, f).tolist() for f in REF_FIELDS]
+            + [getattr(state, f).tolist() for f in REF_CARRIES])
+
+
+def run_reference(step, state, blocks, ref_dir, tag):
+    """The reference step over the blocks: its integers per block, and its
+    frames (the whole stacked frame output when any slot emits) as
+    ref_dir/tag-b.npy."""
+    ints = []
+    for b, raw in enumerate(blocks):
+        state, out = step(state, torch.from_numpy(raw).to(step.device), StepControls())
+        ints.append(_ints(state, out))
+        if out.frame_valid.any():
+            np.save(os.path.join(ref_dir, f"{tag}-{b}.npy"), out.frame.cpu().numpy())
+    return ints
+
+
+def _hold(outs, ref_dir, tag, ref_ints, pick=lambda a: a):
+    """A rank's (state ints, outputs) per block against the reference's:
+    integers equal (pick selects this rank's part of a stacked reference),
+    frames within their tolerance. Returns (integers equal, max abs frame
+    difference, frames compared)."""
+    worst, frames, same = 0.0, 0, True
+    for b, (ints, frame, valid) in enumerate(outs):
+        want = [pick(np.asarray(v)).tolist() for v in ref_ints[b]]
+        same &= ints == want
+        path = os.path.join(ref_dir, f"{tag}-{b}.npy")
+        if np.asarray(valid).any():
+            ref = pick(np.load(path, mmap_mode="r"))
+            mask = np.asarray(valid)
+            worst = max(worst, float(np.abs(frame[mask] - ref[mask]).max()))
+            frames += int(mask.sum())
+    return same, worst, frames
+
+
+def _digest(arrays):
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _drive(step, state, raws, device):
+    """The rank's step over its pre-uploaded inputs, launch counts zeroed
+    just before and read just after; host ms per block (ending in a
+    synchronize). Returns (per block (ints, frame, valid), counts, ms,
+    digest of every output and the final state)."""
+    raws = [torch.from_numpy(np.ascontiguousarray(r)).to(device) for r in raws]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    kept, ms = [], []
+    for raw in raws:
+        t0 = time.perf_counter()
+        state, out = step(state, raw, StepControls())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append((state, out))
+    launches = counts()
+    outs, every = [], []
+    for st, out in kept:
+        outs.append((_ints(st, out), out.frame.cpu().numpy(), out.frame_valid.cpu().numpy()))
+        every += [x.cpu().numpy() for x in out]
+    every += [x.cpu().numpy() for x in state_leaves(state)]
+    return outs, launches, ms, _digest(every)
+
+
+def rank_time_sharded(cfg, params, blocks, ref_dir, tag, ref_ints):
+    """One rank of the time-sharded step at T = T_RANKS on this card."""
+    mesh = make_mesh(1, T_RANKS, device=DEV)
+    step = make_time_sharded_step(cfg, params, mesh)
+    S, t = cfg.block_samples // T_RANKS, mesh.time_index
+    state = init_state(cfg, params.fir_lowpass_taps, device=mesh.device)
+    outs, launches, ms, digest = _drive(step, state, [b[2 * S * t:2 * S * (t + 1)] for b in blocks],
+                                        mesh.device)
+    same, worst, frames = _hold(outs, ref_dir, tag, ref_ints)
+    return dict(device=str(mesh.device), ints_equal=same, max_abs=worst, frames=frames,
+                launches=launches, ms=ms, digest=digest)
+
+
+def rank_grid(cfg, params, per_ch_blocks, ref_dir, ref_ints):
+    """One rank of the 2 x 2 grid: its row's channel, time-sharded over the row."""
+    mesh = make_mesh(2, T_RANKS // 2, device=DEV)
+    step = make_grid_step(cfg, params, mesh)
+    (r, t), S = mesh.coords, cfg.block_samples // (T_RANKS // 2)
+    state = stack_states(cfg, 1, device=mesh.device)
+    outs, launches, ms, digest = _drive(
+        step, state, [b[None, 2 * S * t:2 * S * (t + 1)] for b in per_ch_blocks[r]], mesh.device)
+    same, worst, frames = _hold(outs, ref_dir, f"grid{r}", ref_ints[r],
+                                pick=lambda a: a[None] if a.ndim in (0, 2) else a)
+    return dict(channel=r, ints_equal=same, max_abs=worst, frames=frames, launches=launches,
+                ms=ms, digest=digest)
+
+
+def rank_channels(cfg, params, n_ch, blocks, ref_dir, ref_ints):
+    """One rank of the channel mesh (T_RANKS 'ch' rows): its n_ch // T_RANKS
+    channels through make_channel_step, held against the single-process
+    hybrid step over all n_ch channels."""
+    mesh = make_mesh(T_RANKS, 1, device=DEV)
+    step = make_channel_step(cfg, params, mesh, n_ch)
+    per = n_ch // T_RANKS
+    mine = slice(mesh.ch_index * per, (mesh.ch_index + 1) * per)
+    state = stack_states(cfg, per, device=mesh.device)
+    outs, launches, ms, digest = _drive(step, state, [b[mine] for b in blocks], mesh.device)
+    same, worst, frames = _hold(outs, ref_dir, "channels", ref_ints, pick=lambda a: a[mine])
+    return dict(channels=[mine.start, mine.stop], ints_equal=same, max_abs=worst, frames=frames,
+                launches=launches, ms=ms, digest=digest)
+
+
+def check_range_entry(cfg, T=T_RANKS):
+    """K1's range entry against box_resample_range_strided on the card, over
+    the T shards of one block (x_local and the pixel ranges as
+    tests/test_parallel.py:177-191 builds them, the first shard owning a
+    pixel that starts in the tail), an empty range and a range past its
+    segment, at three phases and rate scales 1 and 1.001^+-1: within K1_TOL,
+    exactly 0 past n_valid, one launch per call. Then the time of its launch
+    flushed for shard 1 at scale 1 (ms; wrapper_ms adds the wrapper's four
+    small torch operations that make the shard's phase and count), beside
+    its plain version, its bound and the copy floor of its bytes. Returns
+    the row of numbers."""
+    n, taps = cfg.block_samples, cfg.resample_taps
+    S = n // T
+    mpl = int(S * cfg.pixelrate / cfg.samplerate * 1.02) + 2
+    rng = np.random.default_rng(31)
+    x_full = torch.from_numpy(np.concatenate([
+        rng.random(taps + n, dtype=np.float32) * 1.5, np.zeros(taps, np.float32)])).to(DEV)
+    kw = dict(max_pix=mpl, taps=taps, inv_nominal=cfg.samples_per_pixel)
+    i64 = lambda v: torch.tensor(v, dtype=torch.int64, device=DEV)  # noqa: E731
+    worst, calls = 0.0, 0
+    kernels.reset_launch_counts()
+    for scale in (1.0, 1.001, 1 / 1.001):
+        inv = rate_inv(cfg, scale)
+        for ph in (0, -(1 << 38), -(1 << 40) - 12345):
+            phase = i64(ph)
+            n_out = int(resample_counts(phase, inv, n)[0])
+            inv_h = int(inv)
+            first = lambda s: min(max(-((ph - (s << 40)) // inv_h), 0), n_out)  # noqa: E731
+            cases = [(t * S, 0 if t == 0 else first(t * S), first((t + 1) * S)) for t in range(T)]
+            cases += [(S, 7, 7), (S, 4 * S + 50, 4 * S + 150)]
+            for seg, p0, p1 in cases:
+                x_local = x_full[seg:seg + S + 2 * taps].contiguous()
+                args = (x_local, phase, inv, i64(p0), i64(p1), seg)
+                got = box_resample_range_strided_cuda(*args, **kw)
+                want = box_resample_range_strided(*args, **kw)
+                calls += 1
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                assert err <= K1_TOL, f"K1 range entry differs from its plain version by {err}"
+                assert not got[max(p1 - p0, 0):].any(), "K1 range entry: pixels past n_valid"
+                worst = max(worst, err)
+    assert box_resample_range_strided_cuda.launches == calls, "K1 range entry launch count"
+    only(counts(), box_resample_range_strided_cuda=calls)
+    inv = rate_inv(cfg, 1.0)
+    phase = i64(-(1 << 38))
+    p0 = -((-(1 << 38) - (S << 40)) // int(inv))
+    p1 = -((-(1 << 38) - ((2 * S) << 40)) // int(inv))
+    args = (x_full[S:2 * S + 2 * taps].contiguous(), phase, inv, i64(p0), i64(p1), S)
+    eff, n_valid = phase + i64(p0) * inv - (S << 40), i64(p1 - p0)
+    floor = copy_floor(S + 2 * taps, mpl)
+    return dict(
+        ms=time_launches(lambda: range_launch(args[0], eff, inv, n_valid, **kw)),
+        wrapper_ms=time_launches(lambda: box_resample_range_strided_cuda(*args, **kw)),
+        plain_ms=time_launches(lambda: box_resample_range_strided(*args, **kw), reps=10),
+        copy_floor_ms=floor["ms"], max_abs_err=worst, checked_calls=calls, shard_samples=S,
+        max_pix_local=mpl,
+        # x_local and the shard's pixels, plus 4 int64 scalars in
+        **bound(4 * (S + 2 * taps) + 4 * mpl + 4 * 8, mpl * taps * 6 + mpl))
+
+
+def tui_over_pty(cfg, n_blocks=3):
+    """cli.main([... "--tui" ...]) in this process with a pty as its
+    terminal, 8 MS/s on the card: the viewer streams n_blocks (K1 once per
+    block, no other kernel) and writes half-block video and its status bar."""
+    import fcntl
+    import pty
+    import struct
+    import termios
+
+    master, slave = pty.openpty()
+    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH", 40, 120, 0, 0))
+    out, stop = [], threading.Event()
+
+    def drain():  # keep the pty's buffer empty, or the viewer's writes block
+        while not stop.is_set():
+            try:
+                out.append(os.read(master, 1 << 16))
+            except OSError:
+                return
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    saved = sys.stdin, sys.stdout
+    sys.stdin = os.fdopen(slave, "rb", buffering=0, closefd=False)
+    sys.stdout = os.fdopen(slave, "w", buffering=1, closefd=False)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["--source", "synthetic", "--source-params",
+                       f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} {cfg.samplerate} 0.02",
+                       "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
+                       "--rate", str(cfg.refreshrate), "--tui", "--blocks", str(n_blocks),
+                       "--batch-blocks", "1"])  # "auto" (--tui's default) may round the
+        # blocks up to a whole batch; the CPU tests drive the default
+    finally:
+        sys.stdin, sys.stdout = saved
+    dt = time.perf_counter() - t0
+    time.sleep(0.5)
+    stop.set()
+    os.close(slave)
+    reader.join(timeout=10)
+    os.close(master)
+    text = b"".join(out)
+    assert rc == 0, rc
+    only(counts(), box_resample_strided_cuda=n_blocks)
+    done = [ln for ln in text.decode(errors="replace").splitlines() if "tui done:" in ln]
+    assert done and b"\xe2\x96\x80" in text and b"fps" in text, text[-500:]
+    return dict(blocks=n_blocks, k1_launches=n_blocks, log=done[-1].split("] ", 1)[-1],
+                terminal_bytes=len(text), wall_s=dt)
+
+
+def sharded_phase(smi):
+    """Phase 10; returns K1's launches per rank on each sharded path and the
+    range entry's row."""
+    g64 = GEOMETRIES["64MS/s"]
+    rng_row = check_range_entry(g64)
+    print("K1 range entry (64MS/s, T=4 shards) " + json.dumps(rng_row))
+    rows, by_path = {}, {}
+    raster = render_test_pattern(g64.height, g64.width // 2)
+    blocks = ReplayU8(g64, raster, 12).blocks
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with RankPool(T_RANKS, init_method=f"file://{os.path.join(tmp, 'rdv')}") as pool:
+            pids = pool.run(os.getpid)  # every rank up and in the process group
+            print(f"started {T_RANKS} gloo ranks (pids {pids}) in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            runs = (("time-sharded", Params(framerate_pll=False), 12, 1),
+                    ("time-sharded fir31", Params(framerate_pll=False, fir_lowpass_taps=31), 4, 1),
+                    ("time-sharded nearest", Params(framerate_pll=False, nearest_neighbour=True),
+                     4, 0))
+            for name, params, nb, per_block in runs:
+                ref = run_reference(make_step(g64, params, device=DEV),
+                                    init_state(g64, params.fir_lowpass_taps, device=DEV),
+                                    blocks[:nb], tmp, name)
+                res = pool.run(rank_time_sharded, g64, params, blocks[:nb], tmp, name, ref)
+                rows[name] = hold_ranks(name, res, {"box_resample_range_strided_cuda":
+                                                    per_block * nb})
+            by_path["time-sharded T=4 64MS/s, 12 blocks (range entry, each rank)"] = \
+                rows["time-sharded"]["launches"]["box_resample_range_strided_cuda"]
+
+            # the grid: 2 channels of their own raster widths, each over 2 ranks
+            srcs = channel_sources(g64, 2, 4)
+            per_ch = [s.blocks for s in srcs]
+            ref = [run_reference(make_step(g64, Params(framerate_pll=False), device=DEV),
+                                 init_state(g64, device=DEV), per_ch[c], tmp, f"grid{c}")
+                   for c in range(2)]
+            res = pool.run(rank_grid, g64, Params(framerate_pll=False), per_ch, tmp, ref)
+            rows["grid"] = hold_ranks("grid", res, {"box_resample_range_strided_cuda": 4},
+                                      groups=lambda r: r["channel"])
+            by_path["grid 2x2 64MS/s, 4 blocks (range entry, each rank)"] = 4
+
+            # the channel mesh at config 5's geometry: 4 ranks x 2 channels
+            srcs = channel_sources(CH5, N_CH, 4)
+            cblocks = channel_blocks(srcs)
+            ref = run_reference(make_channels_step_hybrid(CH5, Params(), N_CH, device=DEV),
+                                stack_states(CH5, N_CH, device=DEV), cblocks, tmp, "channels")
+            res = pool.run(rank_channels, CH5, Params(), N_CH, cblocks, tmp, ref)
+            rows["channel mesh"] = hold_ranks(
+                "channel mesh", res, {"box_resample_strided_cuda": 4 * N_CH // T_RANKS},
+                groups=lambda r: tuple(r["channels"]), tol=CHANNEL_TOL)
+            by_path["channel mesh 4x2 16MS/s, 4 blocks (block entry, each rank)"] = \
+                4 * N_CH // T_RANKS
+    for name, row in rows.items():
+        print(f"sharded {name} " + json.dumps(row))
+    print(f"sharded, parity only (one card shows no speed-up from sharding; host clock; "
+          f"card {smi}): " + json.dumps({name: row["ms_per_block_median"]
+                                         for name, row in rows.items()}))
+    print("tui over a pty (8MS/s) " + json.dumps(tui_over_pty(GEOMETRIES["8MS/s"])))
+    return by_path, rng_row
+
+
+def hold_ranks(name, res, launches, groups=lambda r: 0, tol=SHARD_TOL):
+    """Every rank held: integers equal to the reference's, frames within
+    tol, the path's kernel launched exactly `launches` times in each rank
+    and no other kernel, and ranks that hold the same replica (same
+    groups(r)) equal bit for bit."""
+    for rank, r in enumerate(res):
+        assert r["ints_equal"], (name, rank, "integers differ from the reference")
+        assert r["frames"] > 0 and r["max_abs"] <= tol, (name, rank, r["frames"], r["max_abs"])
+        assert r["launches"] == {k: launches.get(k, 0) for k in r["launches"]}, \
+            (name, rank, r["launches"])
+    replicas = {}
+    for r in res:
+        replicas.setdefault(groups(r), set()).add(r["digest"])
+    assert all(len(d) == 1 for d in replicas.values()), (name, "ranks of one replica differ")
+    ms = [m for r in res for m in r["ms"][1:]]  # the first block carries the warm-up
+    return dict(ranks=len(res), frames_each=[r["frames"] for r in res],
+                max_abs=max(r["max_abs"] for r in res), launches=res[0]["launches"],
+                ms_per_block_median=float(np.median(ms)), ms_per_block_max=float(np.max(ms)),
+                replicas_equal=True)
+
+
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
     "K1": (box_resample_strided_cuda, "strided_resample.cu",
            "tempestsdr_tpu/pallas/strided_kernel.py:65"),
@@ -1318,6 +1649,7 @@ def main():
     assert superresolution(g64) == 1 << 21  # 2^23 stitched samples a cycle
     numbers_worth_a_line(build_s)
     channel_launches = channels_phase()
+    sharded_launches, range_row = sharded_phase(smi)
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
     kern = []
@@ -1335,6 +1667,16 @@ def main():
                     launches[kid],
                 ("MultiSession 8x16MS/s, 12 blocks" if kid == "K1"
                  else "fused hybrid channels step 8x16MS/s, 4 blocks"): channel_launches[kid]}
+        if kid == "K1":
+            kern[-1]["launches_by_path"].update(sharded_launches)
+            kern[-1]["range_entry"] = dict(
+                wrapper=box_resample_range_strided_cuda.__name__, ms=range_row["ms"],
+                wrapper_ms=range_row["wrapper_ms"],
+                plain_ms=range_row["plain_ms"], bound_ms=range_row["bound_ms"],
+                bound_by=range_row["bound_by"], copy_floor_ms=range_row["copy_floor_ms"],
+                max_abs_err=range_row["max_abs_err"],
+                launches=sharded_launches["time-sharded T=4 64MS/s, 12 blocks "
+                                          "(range entry, each rank)"])
         if kid == "K4":
             g = perf["64MS/s"]["gather"]
             kern[-1].update(gather_ms=g["ms"], gather_plain_ms=g["plain_ms"],

@@ -1,17 +1,20 @@
-"""PyTorch/CUDA port of tempestsdr_tpu for one NVIDIA H100: the whole
-single-channel receiver, from the front door down to the kernels.
+"""PyTorch/CUDA port of tempestsdr_tpu for NVIDIA H100 cards: the whole
+receiver, from the front door down to the kernels.
 
   - api.TSDR and `python -m tempestsdr_tpu_torch.cli`: the reference C API
-    surface and the headless command line (auto-resolution, manual lag
-    selection, snapshots, plots, preferences);
+    surface and the command line (auto-resolution, manual lag selection,
+    snapshots, plots, preferences; --tui, the terminal viewer in tui.py);
   - stream.Session: the streaming loop with batching, live params,
     framerate nudge, async start/stop, autocorrelation dump, warm start and
     superresolution (superband.py); stream.make_step: the per-block step;
+    stream.MultiSession and the channel steps: several targets on one card;
+  - parallel/: the receiver sharded over torch.distributed ranks (channels,
+    a wideband block's time shards, or both);
   - kernels/ and csrc/: the box resamplers as hand-written CUDA kernels for
-    Hopper (strided, fused decode + demod + resample, chunked, windows and
-    their gather), each beside its plain PyTorch version;
-  - ops/, estimate/, sources/ (synthetic, rawfile), snapshot, prefs,
-    utils.profiling.
+    Hopper (strided, with a range entry for one time shard; fused decode +
+    demod + resample; chunked; windows and their gather), each beside its
+    plain PyTorch version;
+  - ops/, estimate/, sources/, native/, snapshot, prefs, utils.profiling.
 
 Entry points take an explicit `device` (default "cuda"); without a CUDA
 device they raise unless the caller asks for "cpu", where every kernel

@@ -86,7 +86,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tui", action="store_true",
                    help="interactive terminal viewer: live half-block video "
                         "+ keyboard control (the GUI's canvas/hold-button "
-                        "surface); not ported yet")
+                        "surface — see tempestsdr_tpu_torch/tui.py for the key map)")
     p.add_argument("--trace", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the run into DIR "
                         "(a Chrome trace, Perfetto-readable; SURVEY §5.1)")
@@ -319,8 +319,16 @@ def main(argv=None) -> int:
             log(f"frame {n_frames}: range [{f.min():.3f}, {f.max():.3f}]")
 
     if args.tui:
-        raise NotImplementedError(
-            "not ported yet: --tui (ROADMAP.md Queue 1: tui.py)")
+        from .tui import run_tui
+
+        n = run_tui(rx, max_frames=args.frames, max_blocks=args.blocks,
+                    freq=args.freq, gain=args.gain,
+                    snapshot_dir=args.out or ".", snapshot_fmt=args.format)
+        log(f"tui done: {n} frames")
+        if args.save_prefs:
+            _store_prefs(args, prefs)
+        rx.close()
+        return 0
 
     import contextlib
 

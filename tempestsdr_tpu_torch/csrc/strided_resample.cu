@@ -49,6 +49,15 @@
 // taps_eff (the wrapper's margin) sizes the window for the whole PLL
 // headroom, so no block needs the TPU kernel's fallback to the plain form.
 //
+// The range entry (tsdr_strided_resample_range) runs the same kernel over
+// one time shard's pixels of a block (parallel/timeshard.py), the problem
+// the JAX package's box_resample_range_strided states: x is the shard's
+// [taps halo | S samples | taps halo], the phase is the shard's shifted
+// window-start phase, and the pixel mask comes from a device count of valid
+// pixels instead of from the carries' numerator; it writes no carries (the
+// step computes them once for the block). One flag of the template
+// separates the two; the block entry's code is what it was.
+//
 // Also here: tsdr_noop and tsdr_copy_floor, the two floors a launch of this
 // size is read against (an empty launch; a float4 copy of the same bytes).
 
@@ -76,11 +85,15 @@ __device__ __forceinline__ float box(const float* win, int s, float rel, float e
   return __fadd_rn(acc, __fmul_rn(overlap(rel, end, i0 + 1), win[s + i0 + 1]));
 }
 
+// kRange == false: one block, n_valid_p unused, the carries written.
+// kRange == true: one shard's range, n_samples and the carries unused.
+template <bool kRange>
 __global__ void __launch_bounds__(kThreads, 8)
 strided_resample_kernel(const float* __restrict__ x, long long x_len,
                         const long long* __restrict__ phase_p,
                         const long long* __restrict__ inv_p,
-                        long long n_samples, float* __restrict__ out,
+                        long long n_samples, const long long* __restrict__ n_valid_p,
+                        float* __restrict__ out,
                         int* __restrict__ n_out_p, long long* __restrict__ new_phase_p,
                         long long max_pix, int taps, int margin, int taps_eff) {
   extern __shared__ __align__(16) float slot[];  // the chunk's window
@@ -92,13 +105,18 @@ strided_resample_kernel(const float* __restrict__ x, long long x_len,
 
   // exact chunk base: arithmetic >> is floor for negative phases
   const long long p0 = (long long)blockIdx.x * (2LL * kTile);
-  const int lim = tsdr::valid_pixels(p0, 2 * kTile, num, inv);
+  int lim;
+  if constexpr (kRange) {
+    lim = (int)min(max(*n_valid_p - p0, 0LL), 2LL * kTile);
+  } else {
+    lim = tsdr::valid_pixels(p0, 2 * kTile, num, inv);
+  }
   const long long base = phase + p0 * inv;
   const long long start = base >> kFracBits;
   const long long w0 = start - margin + taps;  // the window's first sample in x
   if (lim > 0) tsdr::stage_window(slot, x, x_len, w0, kTile + taps_eff, tid, kThreads);
 
-  if (blockIdx.x == 0 && tid == 0) {
+  if (!kRange && blockIdx.x == 0 && tid == 0) {
     // exact carries; a negative numerator (a drop skip draining past this
     // block) gives n_out = 0 under floor division, as it does here
     const long long n_out = num > 0 ? num / inv : 0;
@@ -183,8 +201,28 @@ extern "C" int tsdr_strided_resample(const float* x, long long x_len,
     return 1;  // cudaErrorInvalidValue: nothing would write the carries
   const long long chunks = (max_pix + 2LL * kTile - 1) / (2LL * kTile);
   const size_t smem = (size_t)tsdr::slot_floats(kTile + taps_eff) * sizeof(float);
-  strided_resample_kernel<<<(unsigned)chunks, kThreads, smem, (cudaStream_t)stream>>>(
-      x, x_len, phase, inv, n_samples, out, n_out, new_phase, max_pix, taps, margin, taps_eff);
+  strided_resample_kernel<false><<<(unsigned)chunks, kThreads, smem, (cudaStream_t)stream>>>(
+      x, x_len, phase, inv, n_samples, nullptr, out, n_out, new_phase, max_pix, taps, margin,
+      taps_eff);
+  return (int)cudaGetLastError();
+}
+
+// Launches K1 over one time shard's pixels: pixel i of `out` (i < max_pix)
+// is the box integral over [eff_phase + i*inv, + inv) of x's segment samples
+// (x[taps + s] is segment sample s; samples outside x read as 0), zero at
+// i >= *n_valid. eff_phase, inv and n_valid are int64 device scalars; no
+// carries. Returns the cudaError_t of the launch.
+extern "C" int tsdr_strided_resample_range(const float* x, long long x_len,
+                                           const long long* eff_phase, const long long* inv,
+                                           const long long* n_valid, float* out,
+                                           long long max_pix, int taps, int margin,
+                                           int taps_eff, void* stream) {
+  if (max_pix <= 0 || ((uintptr_t)out & 15) != 0) return 1;  // cudaErrorInvalidValue
+  const long long chunks = (max_pix + 2LL * kTile - 1) / (2LL * kTile);
+  const size_t smem = (size_t)tsdr::slot_floats(kTile + taps_eff) * sizeof(float);
+  strided_resample_kernel<true><<<(unsigned)chunks, kThreads, smem, (cudaStream_t)stream>>>(
+      x, x_len, eff_phase, inv, 0, n_valid, out, nullptr, nullptr, max_pix, taps, margin,
+      taps_eff);
   return (int)cudaGetLastError();
 }
 

@@ -11,11 +11,12 @@ from .fused_demod_resample import (  # noqa: F401
     fused_demod_resample_cuda,
     fused_demod_resample_u16_cuda,
 )
-from .strided_resample import box_resample_strided_cuda  # noqa: F401
+from .strided_resample import box_resample_range_strided_cuda, box_resample_strided_cuda  # noqa: F401
 
 # every kernel wrapper of the port, for launch accounting
 WRAPPERS = (
     box_resample_strided_cuda,
+    box_resample_range_strided_cuda,
     fused_demod_resample_cuda,
     fused_demod_resample_u16_cuda,
     box_resample_pallas_cuda,

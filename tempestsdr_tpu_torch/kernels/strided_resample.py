@@ -23,6 +23,11 @@ the address, and windows that leave x_ext take checked loads in the kernel.
 The tap loop covers the whole PLL headroom (config.PLL_HEADROOM_FRAC, which
 framerate_pll and the refresh nudge clamp to), so the kernel serves every
 block the step can produce and has no fallback branch.
+
+box_resample_range_strided_cuda is K1's second entry, for the time-sharded
+step: the same kernel over one shard's pixel range (its plain version is
+ops.resample.box_resample_range_strided), with the shard's shifted phase
+and a device count of valid pixels, and no carries.
 """
 
 from __future__ import annotations
@@ -33,7 +38,12 @@ import math
 import torch
 
 from ..config import PLL_HEADROOM_FRAC
-from ..ops.resample import box_resample_strided, plan_strided
+from ..ops.resample import (
+    box_resample_range_strided,
+    box_resample_strided,
+    plan_strided,
+    shard_phase,
+)
 
 TILE = 1024  # samples per chunk, the unit of the kernel's f32 ramp (margin and
 # taps_eff follow from it); equals kTile in the .cu source
@@ -64,6 +74,12 @@ def _lib():
             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
+        lib.tsdr_strided_resample_range.restype = ctypes.c_int
+        lib.tsdr_strided_resample_range.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
         lib.tsdr_noop.restype = ctypes.c_int
         lib.tsdr_noop.argtypes = [ctypes.c_void_p]
         lib.tsdr_copy_floor.restype = ctypes.c_int
@@ -82,18 +98,9 @@ def box_resample_strided_cuda(x_ext, phase_fix, inv_fix, *, n_samples: int, max_
     if x_ext.device.type == "cpu":
         return box_resample_strided(x_ext, phase_fix, inv_fix, n_samples=n_samples,
                                     max_pix=max_pix, taps=taps, inv_nominal=inv_nominal)
-    if x_ext.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got {x_ext.device}")
-    plan = plan_strided(inv_nominal, taps)
-    if plan is None or plan[0] != 2:
-        raise ValueError("K1 requires the m == 2 geometry")
-    if x_ext.dtype != torch.float32 or x_ext.dim() != 1 or not x_ext.is_contiguous():
-        raise ValueError("x_ext must be a contiguous 1-D float32 tensor")
+    _check_m2(x_ext, inv_nominal, taps, dict(phase_fix=phase_fix, inv_fix=inv_fix))
     if x_ext.shape[0] != taps + n_samples:
         raise ValueError(f"x_ext has {x_ext.shape[0]} samples, expected {taps + n_samples}")
-    for name, t in (("phase_fix", phase_fix), ("inv_fix", inv_fix)):
-        if t.dtype != torch.int64 or t.dim() != 0 or t.device != x_ext.device:
-            raise ValueError(f"{name} must be a 0-d int64 tensor on {x_ext.device}")
     if max_pix <= 0:
         raise ValueError("max_pix must be positive")
     margin, taps_eff = k1_margin(inv_nominal)
@@ -115,6 +122,67 @@ def box_resample_strided_cuda(x_ext, phase_fix, inv_fix, *, n_samples: int, max_
 
 
 box_resample_strided_cuda.launches = 0
+
+
+def _check_m2(x, inv_nominal: float, taps: int, scalars) -> None:
+    """What both K1 entries take: the m == 2 geometry, a contiguous 1-D
+    float32 input, and 0-d int64 scalars on its device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA tensors, got {x.device}")
+    plan = plan_strided(inv_nominal, taps)
+    if plan is None or plan[0] != 2:
+        raise ValueError("K1 requires the m == 2 geometry")
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("the input must be a contiguous 1-D float32 tensor")
+    for name, t in scalars.items():
+        if t.dtype != torch.int64 or t.dim() != 0 or t.device != x.device:
+            raise ValueError(f"{name} must be a 0-d int64 tensor on {x.device}")
+
+
+def box_resample_range_strided_cuda(x_local, phase_fix, inv_fix, p_start, p_end, seg_offset, *,
+                                    max_pix: int, taps: int, inv_nominal: float):
+    """K1's range entry on CUDA tensors (one launch, no host round trip);
+    the plain box_resample_range_strided on CPU tensors. Same contract:
+    x_local f32[taps + S + taps], phase_fix/inv_fix/p_start/p_end 0-d int64,
+    seg_offset the segment's first global sample (an int or a 0-d int64);
+    returns pixels f32[max_pix], zero past p_end - p_start."""
+    if x_local.device.type == "cpu":
+        return box_resample_range_strided(x_local, phase_fix, inv_fix, p_start, p_end,
+                                          seg_offset, max_pix=max_pix, taps=taps,
+                                          inv_nominal=inv_nominal)
+    _check_m2(x_local, inv_nominal, taps, dict(phase_fix=phase_fix, inv_fix=inv_fix,
+                                                p_start=p_start, p_end=p_end))
+    if x_local.shape[0] <= 2 * taps:
+        raise ValueError(f"x_local has {x_local.shape[0]} samples, no segment between its halos")
+    if max_pix <= 0:
+        raise ValueError("max_pix must be positive")
+    out = range_launch(x_local, shard_phase(phase_fix, inv_fix, p_start, seg_offset), inv_fix,
+                       torch.clamp(p_end - p_start, min=0), max_pix=max_pix, taps=taps,
+                       inv_nominal=inv_nominal)
+    box_resample_range_strided_cuda.launches += 1
+    return out
+
+
+def range_launch(x_local, eff_phase, inv_fix, n_valid, *, max_pix: int, taps: int,
+                 inv_nominal: float):
+    """The range entry's one launch, from the shard's window-start phase and
+    its count of valid pixels (0-d int64 CUDA tensors): what
+    box_resample_range_strided_cuda runs after computing those two. Inputs
+    as that wrapper checks them; counts nothing."""
+    margin, taps_eff = k1_margin(inv_nominal)
+    eff_phase, inv_fix, n_valid = (t.contiguous() for t in (eff_phase, inv_fix, n_valid))
+    out = torch.empty((max_pix,), dtype=torch.float32, device=x_local.device)
+    err = _lib().tsdr_strided_resample_range(
+        x_local.data_ptr(), x_local.shape[0], eff_phase.data_ptr(), inv_fix.data_ptr(),
+        n_valid.data_ptr(), out.data_ptr(), max_pix, taps, margin, taps_eff,
+        torch.cuda.current_stream(x_local.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"K1 range launch failed: cudaError_t {err}")
+    return out
+
+
+box_resample_range_strided_cuda.launches = 0
 
 
 def launch_noop(device) -> None:

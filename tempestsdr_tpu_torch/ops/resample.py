@@ -17,6 +17,12 @@ last bit on the CPU; only the TPU interleave matmul became an index
 reshape. box_resample_block_chunked is the plain version of kernels K3 and
 K4 (kernels/chunked_resample.py) and likewise keeps the JAX form's windows
 and float order; only its final reduction sums in torch's order.
+
+The range forms (box_resample_range_strided, box_resample_range,
+nn_resample_range) resample one time shard's pixels of a block, for the
+time-sharded step (parallel/timeshard.py); box_resample_range_strided is
+the plain version of K1's range entry. box_resample_block (dense, per-pixel
+int64) and box_resample_gather_i32 are reference forms on no step path.
 """
 
 from __future__ import annotations
@@ -211,3 +217,164 @@ def _strided_pixels(x_ext, phase_fix, inv_fix, n_valid, *, plan, max_pix: int,
     pixels = acc.transpose(1, 2).reshape(-1)[:max_pix] * rate_f
     valid = torch.arange(max_pix, dtype=torch.int32, device=dev) < n_valid
     return torch.where(valid, pixels, torch.zeros_like(pixels))
+
+
+def box_resample_block(x_ext, phase_fix, inv_fix, *, n_samples: int, max_pix: int, taps: int):
+    """The dense form: every pixel's window from its own exact int64 start,
+    `taps` gathered samples each. Same contract as box_resample_strided; the
+    reference form the others are checked against (no step path takes it)."""
+    dev = x_ext.device
+    n_out, new_phase = resample_counts(phase_fix, inv_fix, n_samples)
+    p = torch.arange(max_pix, dtype=torch.int64, device=dev)
+    a = phase_fix + p * inv_fix
+    b = a + inv_fix
+    i0 = (a >> FRAC_BITS).to(torch.int32)  # arithmetic shift == floor
+    scale = _f32(float(1 << FRAC_BITS), dev) / inv_fix.to(torch.float32)
+    acc = torch.zeros((max_pix,), dtype=torch.float32, device=dev)
+    for t in range(taps):
+        idx = i0 + t
+        lo = torch.maximum(a, idx.to(torch.int64) << FRAC_BITS)
+        hi = torch.minimum(b, (idx + 1).to(torch.int64) << FRAC_BITS)
+        w = torch.clamp(hi - lo, min=0).to(torch.float32) * _INV_SCALE
+        g = x_ext[torch.clamp(idx + taps, 0, x_ext.shape[0] - 1).to(torch.int64)]
+        acc = acc + w * g
+    valid = p < n_out.to(torch.int64)
+    return torch.where(valid, acc * scale, torch.zeros_like(acc)), n_out, new_phase
+
+
+def box_resample_gather_i32(x_ext, phase_fix, inv_fix, *, n_samples: int, max_pix: int,
+                            taps: int, inv_nominal: float, chunk: int = 256):
+    """The gather form: box_resample_block_chunked's per-chunk exact bases
+    and f32 ramps, with the `taps` samples a pixel touches gathered by int32
+    index (no dense window). Same contract and carries; the JAX package
+    keeps it as a measured alternative, and no step path takes it."""
+    dev = x_ext.device
+    n_out, new_phase = resample_counts(phase_fix, inv_fix, n_samples)
+    inv_f = inv_fix.to(torch.float32) * _INV_SCALE
+    rate_f = _f32(float(1 << FRAC_BITS), dev) / inv_fix.to(torch.float32)
+
+    n_chunks = -(-max_pix // chunk)
+    c = torch.arange(n_chunks, dtype=torch.int64, device=dev)
+    base = phase_fix + (c * chunk) * inv_fix
+    start = (base >> FRAC_BITS).to(torch.int32)
+    frac = (base - (start.to(torch.int64) << FRAC_BITS)).to(torch.float32) * _INV_SCALE
+
+    r = torch.arange(chunk, dtype=torch.float32, device=dev)
+    pos = frac[:, None] + r[None, :] * inv_f  # (n_chunks, chunk), relative to start
+    i_loc = torch.floor(pos).to(torch.int32)
+    idx0 = start[:, None] + i_loc + taps  # each pixel's first tap in x_ext
+    sub = pos - i_loc.to(torch.float32)  # in [0, 1)
+
+    acc = torch.zeros((n_chunks, chunk), dtype=torch.float32, device=dev)
+    limit = x_ext.shape[0] - 1
+    for t in range(taps):
+        lo = torch.clamp(sub, min=float(t))
+        hi = torch.clamp(sub + inv_f, max=float(t + 1))
+        w = torch.clamp(hi - lo, min=0.0)
+        g = x_ext[torch.clamp(idx0 + t, 0, limit).to(torch.int64)]
+        acc = acc + w * g
+    out = (acc * rate_f).reshape(n_chunks * chunk)[:max_pix]
+    valid = torch.arange(max_pix, dtype=torch.int32, device=dev) < n_out
+    return torch.where(valid, out, torch.zeros_like(out)), n_out, new_phase
+
+
+# ---- the range forms: one shard's pixels of a time-sharded block ----------
+# A shard holds x_local = [taps left halo | its S samples | taps right halo]
+# and produces the global pixels [p_start, p_end) whose window starts fall in
+# its segment; seg_offset is the global index of the segment's first sample.
+# Pixels past p_end - p_start are zero.
+
+
+def _seg64(seg_offset):
+    """A segment offset as the range forms take it: an int, or a 0-d
+    integer tensor (as int64)."""
+    return seg_offset if isinstance(seg_offset, int) else seg_offset.to(torch.int64)
+
+
+def shard_phase(phase_fix, inv_fix, p_start, seg_offset):
+    """The shard's window-start phase relative to its own segment: pixel
+    p_start + i starts at shard_phase + i*inv in x_local's segment samples."""
+    return phase_fix + p_start.to(torch.int64) * inv_fix - (_seg64(seg_offset) << FRAC_BITS)
+
+
+def box_resample_range_strided(x_local, phase_fix, inv_fix, p_start, p_end, seg_offset, *,
+                               max_pix: int, taps: int, inv_nominal: float,
+                               L: int | None = None, G: int = 8):
+    """The strided form over one shard's pixel range: exactly the single-block
+    strided problem with the shifted base phase eff_phase (chunks aligned to
+    p_start, so f32 residuals may round differently from the whole-block
+    form at the ~1e-5-sample level). The plain version of K1's range entry
+    (kernels/strided_resample.py box_resample_range_strided_cuda)."""
+    plan = plan_strided(inv_nominal, taps, L=L)
+    if plan is None:
+        raise ValueError("geometry unsuitable for the strided form; use chunked")
+    eff_phase = shard_phase(phase_fix, inv_fix, p_start, seg_offset)
+    n_local = torch.clamp(p_end - p_start, min=0).to(torch.int32)
+    return _strided_pixels(x_local, eff_phase, inv_fix, n_local, plan=plan, max_pix=max_pix,
+                           taps=taps, G=G)
+
+
+def box_resample_range(x_local, phase_fix, inv_fix, p_start, p_end, seg_offset, *,
+                       max_pix: int, taps: int, inv_nominal: float):
+    """The chunked form over one shard's pixel range, at any rate: chunks of
+    128 pixels from p_start, each chunk's base from the exact int64 phase,
+    one G-aligned window of x_local per chunk and dense overlap weights."""
+    dev = x_local.device
+    inv_f = inv_fix.to(torch.float32) * _INV_SCALE
+    rate_f = _f32(float(1 << FRAC_BITS), dev) / inv_fix.to(torch.float32)
+
+    chunk, G = 128, 32
+    n_chunks = -(-max_pix // chunk)
+    w_in = int(np.ceil(chunk * inv_nominal * 1.02)) + taps + 2
+    w_rows = -(-(w_in + G - 1) // G) + 1
+    w_pad = w_rows * G
+
+    c = torch.arange(n_chunks, dtype=torch.int64, device=dev)
+    base = phase_fix + (p_start.to(torch.int64) + c * chunk) * inv_fix
+    start = (base >> FRAC_BITS).to(torch.int32)
+    frac = (base - (start.to(torch.int64) << FRAC_BITS)).to(torch.float32) * _INV_SCALE
+
+    loc = start + (taps - _seg64(seg_offset))  # window start within x_local
+    n_rows = -(-(x_local.shape[0] + w_pad) // G)
+    x2 = torch.cat([x_local, torch.zeros((n_rows * G - x_local.shape[0],), dtype=x_local.dtype,
+                                         device=dev)]).reshape(n_rows, G)
+    row0 = torch.clamp(torch.div(loc, G, rounding_mode="floor"), 0, n_rows - w_rows)
+    rows = row0.to(torch.int64)[:, None] + torch.arange(w_rows, device=dev)[None, :]
+    win = x2[rows].reshape(n_chunks, w_pad)
+    misalign = (loc - row0 * G).to(torch.float32)
+
+    r = torch.arange(chunk, dtype=torch.float32, device=dev)
+    pos = ((frac + misalign)[:, None] + r[None, :] * inv_f)[:, :, None]
+    j = torch.arange(w_pad, dtype=torch.float32, device=dev)
+    w = torch.minimum(pos + inv_f, j + 1.0)
+    w.sub_(torch.maximum(pos, j)).clamp_(min=0.0)
+    out = torch.bmm(w, win[:, :, None]).reshape(n_chunks * chunk) * rate_f
+    del w
+
+    pixels = out[:max_pix]
+    n_local = (p_end - p_start).to(torch.int32)
+    valid = torch.arange(max_pix, dtype=torch.int32, device=dev) < n_local
+    return torch.where(valid, pixels, torch.zeros_like(pixels))
+
+
+def nn_resample_range(x_full, n_out, p_start, p_end, *, n_samples: int, max_pix: int):
+    """Nearest-neighbour over one shard's pixel range: out[p] =
+    x_full[(n*p) // n_out] for the global pixels p of [p_start, p_end).
+    The mapping is global in p and in x (it ignores the phase, so it can
+    reach past the halos): x_full is the whole block's gathered envelope.
+    The same f32 estimate and exact int64 floor correction as
+    nn_resample_block."""
+    dev = x_full.device
+    n_out64 = torch.clamp(n_out, min=1).to(torch.int64)
+    p = p_start.to(torch.int64) + torch.arange(max_pix, dtype=torch.int64, device=dev)
+    num = n_samples * p
+    ratio = _f32(float(n_samples), dev) / torch.clamp(n_out, min=1).to(torch.float32)
+    q = (p.to(torch.float32) * ratio).to(torch.int64)
+    q = torch.where(q * n_out64 > num, q - 1, q)
+    q = torch.where((q + 1) * n_out64 <= num, q + 1, q)
+    q = torch.where(q * n_out64 > num, q - 1, q)
+
+    n_local = torch.clamp(p_end - p_start, min=0).to(torch.int32)
+    valid = torch.arange(max_pix, dtype=torch.int32, device=dev) < n_local
+    idx = torch.clamp(q, 0, n_samples - 1)
+    return torch.where(valid, x_full[idx], torch.zeros((), dtype=torch.float32, device=dev))

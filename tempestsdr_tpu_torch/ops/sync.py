@@ -6,7 +6,8 @@ by-one quirk; find_the_sweet_spot <- findthesweetspot (:71-119): blur, probe
 strip sizes {curr, curr-4, curr+4, curr/2, curr*2}, first-wins argmax, IIR
 centre tracking with wraparound (round half to even, as torch.round does);
 framerate_pll <- frameratepll (:133-153) with a clamp to the static PLL
-headroom. Profile math follows the profile's dtype: f64 by default, f32
+headroom; find_the_sweet_spot_pair, both axes in one batched search (a
+reference form, on no step path). Profile math follows the profile's dtype: f64 by default, f32
 under Params.fast_sync.
 
 Everything stays on the profile's device: the per-candidate window sums are
@@ -139,6 +140,51 @@ def find_the_sweet_spot(state: SweetspotState, data: torch.Tensor, minsize: int,
     beststripsize = safe[win]
     state = _iir_track(state, beststripsize, beststripstart, n, lowpasscoeff, dt=dt)
     return state, data, beststripstart
+
+
+def find_the_sweet_spot_pair(state_x: SweetspotState, data_x: torch.Tensor, minsize_x: int,
+                             coeff_x: float, state_y: SweetspotState, data_y: torch.Tensor,
+                             minsize_y: int, coeff_y: float):
+    """Both axes' detection rounds (syncdetector.c:176-186) as one batched
+    search: one doubled cumsum over a zero-padded (2, 2L) f64 matrix, the
+    ten candidates' window sums, one metric and masked argmax over (10, L).
+    The same candidate math as find_the_sweet_spot; only the f64 summation
+    order of the padded cumsum can differ, which can flip a strict near-tie.
+    A reference form: the JAX package records it as a measured negative
+    result, and no step takes it.
+    Returns (state_x', state_y', (blur_x, blur_y), (start_x, start_y))."""
+    nx, ny = data_x.shape[0], data_y.shape[0]
+    L = max(nx, ny)
+    dev, f64 = data_x.device, torch.float64
+    bx, by = gaussian_blur_circular(data_x), gaussian_blur_circular(data_y)
+    tx, ty = bx.sum(), by.sum()
+    safe_x, valid_x = _candidate_sizes(state_x, nx, minsize_x)
+    safe_y, valid_y = _candidate_sizes(state_y, ny, minsize_y)
+
+    rows = torch.zeros((2, 2 * L), dtype=f64, device=dev)
+    rows[0, :2 * nx] = torch.cat([bx, bx])
+    rows[1, :2 * ny] = torch.cat([by, by])
+    csum = torch.cat([torch.zeros((2, 1), dtype=f64, device=dev), torch.cumsum(rows, dim=1)], dim=1)
+    # candidate sizes are < n/2 <= L, so every length-L run stays in bounds;
+    # columns past a row's n are masked below
+    span = torch.arange(L, device=dev)[None, :]
+    hi = torch.cat([csum[0][safe_x.to(torch.int64)[:, None] + span],
+                    csum[1][safe_y.to(torch.int64)[:, None] + span]])
+    w = hi - csum[:, :L].repeat_interleave(5, dim=0)
+    s = torch.cat([safe_x, safe_y]).to(f64)[:, None]
+    n_row = torch.tensor([float(nx)] * 5 + [float(ny)] * 5, dtype=f64, device=dev)[:, None]
+    t_row = torch.cat([tx.expand(5), ty.expand(5)]).to(f64)[:, None]
+    m = (t_row - w) / (n_row - s) - w / s
+    m = m * m
+    m = torch.where(span < n_row, m, torch.full_like(m, float("-inf")))
+    j = torch.argmax(m, dim=1).to(torch.int32)
+    fits = torch.where(torch.cat([valid_x, valid_y]), m.max(dim=1).values,
+                       torch.full((10,), float("-inf"), dtype=f64, device=dev))
+    ids = torch.clamp(j - 1, min=0)  # the reference's id-off-by-one (:46-56)
+    win_x, win_y = torch.argmax(fits[:5]), torch.argmax(fits[5:])
+    sx = _iir_track(state_x, safe_x[win_x], ids[win_x], nx, coeff_x)
+    sy = _iir_track(state_y, safe_y[win_y], ids[5 + win_y], ny, coeff_y)
+    return sx, sy, (bx, by), (ids[win_x], ids[5 + win_y])
 
 
 def framerate_pll(pll: PLLState, vx, *, enabled: bool, max_delta: float | None = None) -> PLLState:

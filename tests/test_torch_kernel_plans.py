@@ -7,8 +7,9 @@ zero and late phases; a window fits shared memory at any rate; the
 division-free pixel count equals the carries' n_out; K2's tiles write every
 envelope sample exactly once; and a numpy model of each kernel's tiling (one
 chunk, tile or group of tiles per thread block, staged aligned window,
-per-chunk f32 ramp) and of K4's window gather (one 16-byte piece per thread)
-equals the TPU kernel it replaces, run in interpret mode by the JAX package
+per-chunk f32 ramp; K1's range entry from its shard's phase and count) and
+of K4's window gather (one 16-byte piece per thread) equals the TPU kernel
+it replaces (the range entry: the JAX range form), run in interpret mode by the JAX package
 on the same inputs (K1 within 4e-4, tests/test_ops.py:249; K3 and K4 within
 3e-4, tests/test_pallas.py:99; K2 within 2e-5 with the envelope exact,
 tests/test_pallas.py:75; the gather exactly), and the port's plain version
@@ -215,15 +216,31 @@ def two_tap_box(slot, off, rel, end, taps_eff, rate):
 def k1_model(x, phase, inv, *, n_samples, max_pix, taps, inv_nominal, misalign):
     """K1's tiling in numpy: one chunk a thread block, its staged aligned
     window, the per-chunk f32 ramp and the two taps a pixel can touch."""
-    margin, taps_eff = k1.k1_margin(inv_nominal)
     num = n_samples * ONE - phase
     n_out = max(num // inv, 0)
+    out = k1_pixels(x, phase, inv, lambda p0, total: valid_pixels(p0, total, num, inv),
+                    max_pix=max_pix, taps=taps, inv_nominal=inv_nominal, misalign=misalign)
+    return out, n_out, phase + n_out * inv - n_samples * ONE
+
+
+def k1_range_model(x_local, eff_phase, inv, n_valid, *, max_pix, taps, inv_nominal, misalign):
+    """K1's range entry in numpy: the same tiling from the shard's shifted
+    phase, each chunk's count of valid pixels clamp(n_valid - p0, 0, 2*TILE)
+    (the entry's rule, from a device count), no carries."""
+    return k1_pixels(x_local, eff_phase, inv, lambda p0, total: min(max(n_valid - p0, 0), total),
+                     max_pix=max_pix, taps=taps, inv_nominal=inv_nominal, misalign=misalign)
+
+
+def k1_pixels(x, phase, inv, lim_of, *, max_pix, taps, inv_nominal, misalign):
+    """Both K1 entries' pixels: lim_of(p0, total) is a chunk's count of
+    valid pixels; a chunk with none stages nothing and stores zeros."""
+    margin, taps_eff = k1.k1_margin(inv_nominal)
     rate = F32(float(ONE)) / F32(inv)
     out = np.full(max_pix, np.nan, F32)
     pix = 2 * k1.TILE
     for c in range(-(-max_pix // pix)):
         vals = np.zeros(pix, F32)
-        lim = valid_pixels(c * pix, pix, num, inv)
+        lim = lim_of(c * pix, pix)
         if lim > 0:
             start, frac = chunk_bases(phase, inv, c * pix)
             a, off, cnt = aligned_window(start - margin + taps, k1.TILE + taps_eff, misalign)
@@ -234,7 +251,7 @@ def k1_model(x, phase, inv, *, n_samples, max_pix, taps, inv_nominal, misalign):
             vals[lim:] = 0
         seg = out[c * pix:(c + 1) * pix]
         seg[:] = vals[:seg.shape[0]]
-    return out, n_out, phase + n_out * inv - n_samples * ONE
+    return out
 
 
 def k3_model(x, phase, inv, *, n_samples, max_pix, taps, inv_nominal, misalign):
@@ -335,6 +352,48 @@ def test_k1_tiling_model_matches_tpu_kernel_and_plain_version(phase_name, misali
 def test_k1_tiling_model_at_pll_ends(inv_scale):
     held(k1_model, tpu_k1, 4e-4, tops.box_resample_strided, 2e-5, 0.5007410968232985, "zero", 2,
          inv_scale=inv_scale)
+
+
+@pytest.mark.parametrize("misalign", [0, 1])
+@pytest.mark.parametrize("inv_scale", (1.0,) + PLL_ENDS)
+@pytest.mark.parametrize("phase", [-(1 << (FRAC_BITS - 2)), -ONE - 12345, 0])
+def test_k1_range_model_matches_jax_range_form(phase, inv_scale, misalign):
+    """K1's range entry over the T = 4 shards of a block (x_local and the
+    pixel ranges built as tests/test_parallel.py:177-191 builds them), plus
+    an empty range and a phase past its segment: equal to the JAX package's
+    box_resample_range_strided within 2e-5 (K1's tolerance), exactly 0 past
+    n_valid; and the port's plain range form equal to JAX's."""
+    import tempestsdr_tpu.ops.resample as jr
+
+    rng = np.random.default_rng(23)
+    inv0, taps, S, T = 0.5000040625330081, 2, 8192, 4
+    inv = round(inv0 * inv_scale * ONE)
+    n = S * T
+    env = (rng.random(n) * 1.5).astype(F32)
+    x_full = np.concatenate([rng.random(taps).astype(F32), env, np.zeros(taps, F32)])
+    n_out = max((n * ONE - phase) // inv, 0)
+    mp = int(S / inv0 * 1.02) + 2
+    cases = []
+    for t in range(T):
+        seg = t * S
+        ceil = lambda a: -((-a) // inv)  # noqa: E731
+        cases.append((seg, 0 if t == 0 else min(max(ceil((seg << FRAC_BITS) - phase), 0), n_out),
+                      min(max(ceil(((seg + S) << FRAC_BITS) - phase), 0), n_out)))
+    cases += [(S, 7, 7), (S, 4 * S + 50, 4 * S + 150)]  # empty; starts past the segment
+    kw = dict(max_pix=mp, taps=taps, inv_nominal=inv0)
+    for seg, p0, p1 in cases:
+        x_local = x_full[seg:seg + S + 2 * taps]
+        eff = phase + p0 * inv - (seg << FRAC_BITS)
+        got = k1_range_model(x_local, eff, inv, max(p1 - p0, 0), misalign=misalign, **kw)
+        want = np.asarray(jr.box_resample_range_strided(
+            jnp.asarray(x_local), jnp.int64(phase), jnp.int64(inv), jnp.int64(p0), jnp.int64(p1),
+            jnp.int64(seg), **kw))
+        assert not np.isnan(got).any() and not got[max(p1 - p0, 0):].any()
+        assert np.abs(got - want).max() <= 2e-5, (seg, p0, p1)
+        plain = tops.box_resample_range_strided(
+            torch.from_numpy(x_local), torch.tensor(phase), torch.tensor(inv), torch.tensor(p0),
+            torch.tensor(p1), seg, **kw)
+        np.testing.assert_array_equal(plain.numpy(), want)
 
 
 @pytest.mark.parametrize("misalign", [0, 1, 3])

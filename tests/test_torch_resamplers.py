@@ -24,6 +24,7 @@ from tempestsdr_tpu.pallas.fused_kernel import fused_demod_resample as j_fused
 from tempestsdr_tpu_torch import ops as tops
 from tempestsdr_tpu_torch.config import PLL_HEADROOM_FRAC
 from tempestsdr_tpu_torch.kernels import (
+    box_resample_range_strided_cuda,
     box_resample_pallas_cuda,
     box_resample_pallas_windows_cuda,
     box_resample_strided_cuda,
@@ -233,6 +234,22 @@ def _gather_args():
     return args, {k: v for k, v in kw.items() if k != "n_samples"}
 
 
+def _range_args():
+    """One time shard of a block: shard 1 of 4, as the time-sharded step
+    hands it to K1's range entry."""
+    rng = np.random.default_rng(9)
+    S, taps, inv0 = 2048, 2, 0.500004
+    inv = round(inv0 * (1 << FRAC_BITS))
+    x_local = torch.from_numpy((rng.random(S + 2 * taps) * 1.5).astype(np.float32))
+    p0, p1 = -((PHASE - (S << FRAC_BITS)) // inv), -((PHASE - ((2 * S) << FRAC_BITS)) // inv)
+    return ((x_local, torch.tensor(PHASE), torch.tensor(inv), torch.tensor(p0), torch.tensor(p1),
+             torch.tensor(S)), dict(max_pix=int(S / inv0 * 1.02) + 2, taps=taps, inv_nominal=inv0))
+
+
+def _outputs(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
 WRAPPERS = {
     "K1": (box_resample_strided_cuda, tops.box_resample_strided,
            lambda: _resample_args(1 / 0.500004)),
@@ -243,6 +260,7 @@ WRAPPERS = {
     "K4": (box_resample_pallas_windows_cuda, tops.box_resample_block_chunked,
            lambda: _resample_args(RATES[2])),
     "gather": (gather_windows, gather_windows_plain, _gather_args),
+    "K1 range": (box_resample_range_strided_cuda, tops.box_resample_range_strided, _range_args),
 }
 
 
@@ -253,7 +271,7 @@ def test_wrapper_on_cpu_runs_plain_version(kernel):
     wrapper, plain, make = WRAPPERS[kernel]
     args, kw = make()
     before = wrapper.launches
-    for got, want in zip(wrapper(*args, **kw), plain(*args, **kw)):
+    for got, want in zip(_outputs(wrapper(*args, **kw)), _outputs(plain(*args, **kw))):
         assert torch.equal(got, want)
     assert wrapper.launches == before
 
