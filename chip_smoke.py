@@ -26,9 +26,20 @@
    "pallas" and "pallas_windows" at 64 MS/s, checking frames,
    autocorrelation plots and one launch of each of the path's kernels per
    block (the gather and K4 for "pallas_windows"); K2'
-   streams the same blocks through its function entry;
+   streams the same blocks through its function entry. A Session runs its
+   blocks as CUDA-graph replays (stream/graph.py), so its launches on the
+   card are counted by kernel name under torch.profiler (card_counts):
+   a wrapper's own count sees its eager launches and the captures only;
 5. cross-checks the card's step against the CPU step at 8 MS/s for six
-   configurations, and profiles steady default blocks;
+   configurations, and profiles steady default blocks; then the graph
+   step: the eager device step under set_sync_debug_mode("error") (no
+   host read), the block runner at batch 1, 4 and 8 against the eager
+   device step (every output bit for bit) and the host-branching Step
+   (integers exact, frames within GRAPH_TOL), Session(batch_blocks=1, 4,
+   8) at 64 MS/s (frames equal to the eager step's, one packed fetch a
+   batch, K1 once a block), timed in turns, its busy share at batch 8, the
+   one-block replay floor, the fused, pallas and pallas_windows resamplers
+   at batch 4 and 8 MS/s (K == 4) at batch 4 with a drop and a sync shift;
 6. drives the front door: a uint8 capture written to a temporary file goes
    through tempestsdr_tpu_torch.cli.main (rawfile source, 64 MS/s, frames
    and plots saved, K1 once per block) and through TSDR with
@@ -136,8 +147,13 @@ from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     resolve_batch_blocks,
     warm_compile_step,
 )
-from tempestsdr_tpu_torch.stream.state import init_state, state_leaves  # noqa: E402
-from tempestsdr_tpu_torch.utils.profiling import measure_dispatch_floor, profile_trace  # noqa: E402
+from tempestsdr_tpu_torch.stream.graph import BlockRunner  # noqa: E402
+from tempestsdr_tpu_torch.stream.state import StepOutputs, init_state, state_leaves  # noqa: E402
+from tempestsdr_tpu_torch.utils.profiling import (  # noqa: E402
+    measure_dispatch_floor,
+    measure_replay_floor,
+    profile_trace,
+)
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -535,10 +551,11 @@ def warm_up(cfg, raster, params):
 
 
 def run_session(name, cfg, n_blocks, params=Params(), kernels_run=("box_resample_strided_cuda",)):
-    """One Session.run over n_blocks after a warm-up session. Launch counts
-    are zeroed just before the timed run and read just after: each of
-    `kernels_run` must have launched once per block and no other kernel at
-    all."""
+    """Session.run over n_blocks after a warm-up session (which captured the
+    session's graph): once timed, then once with its launches on the card
+    counted (card_counts; the profiler's own cost makes that run slower):
+    each of `kernels_run` must have launched once per block and no other
+    kernel at all."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     warm_up(cfg, raster, params)
     src = ReplayU8(cfg, raster, n_blocks)
@@ -546,21 +563,26 @@ def run_session(name, cfg, n_blocks, params=Params(), kernels_run=("box_resample
     sess = Session(cfg, params, src,
                    SessionCallbacks(on_frame=frames.append, on_plot=plots.append), device=DEV)
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     sess.run(max_blocks=n_blocks)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
     assert frames, f"{name}: no frames"
     assert all(np.isfinite(f).all() and f.shape == (cfg.height, cfg.width) for f in frames)
     cc = float(np.corrcoef(frames[0].ravel(), expected_frame(cfg, raster).ravel())[0, 1])
     assert cc > CORR_MIN, f"{name}: frame correlation {cc}"
     assert plots, f"{name}: no autocorrelation plots"
+    counted = Session(cfg, params, src, device=DEV)
+    with card_counts() as launches:
+        t1 = time.perf_counter()
+        counted.run(max_blocks=n_blocks)
+        torch.cuda.synchronize()
+        dt_counted = time.perf_counter() - t1
     assert launches == {k: n_blocks if k in kernels_run else 0 for k in launches}, (name, launches)
     row = dict(path=name, resampler=params.resampler, blocks=n_blocks, frames=len(frames),
                plots=len(plots), corr=cc, per_block_ms=dt / n_blocks * 1e3,
-               msps=cfg.block_samples * n_blocks / dt / 1e6, launches=launches)
+               msps=cfg.block_samples * n_blocks / dt / 1e6,
+               per_block_ms_under_profiler=dt_counted / n_blocks * 1e3, launches=launches)
     print("e2e " + json.dumps(row))
     return row
 
@@ -719,13 +741,13 @@ def front_door(cfg, tmp, hand_built_ms):
     # frame k completes in the block that brings the fold to k frames
     blocks = -(-n_frames * cfg.frame_pixels * cfg.samples_per_pixel // cfg.block_samples)
     out, plots = os.path.join(tmp, "frames"), os.path.join(tmp, "plots")
-    kernels.reset_launch_counts()
-    log, dt = run_cli([
-        "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
-        "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
-        "--rate", str(cfg.refreshrate), "--out", out, "--plot-out", plots,
-        "--frames", str(n_frames), "--save-every", "2", "--format", "npy"])
-    only(counts(), box_resample_strided_cuda=int(blocks))
+    with card_counts() as launches:
+        log, dt = run_cli([
+            "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
+            "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
+            "--rate", str(cfg.refreshrate), "--out", out, "--plot-out", plots,
+            "--frames", str(n_frames), "--save-every", "2", "--format", "npy"])
+    only(launches, box_resample_strided_cuda=int(blocks))
     assert any(line.startswith(f"done: {n_frames} frames") for line in log), log[-3:]
     saved = sorted(os.listdir(out))
     assert saved == [f"frame_{i:06d}.npy" for i in (1, 2, 4, 6)], saved
@@ -739,8 +761,9 @@ def front_door(cfg, tmp, hand_built_ms):
     img = np.load(os.path.join(plots, rendered[0]))
     assert img.shape == (240, 640) and img.max() == 1.0  # the curve, as floats in [0, 1]
     row = dict(path="cli 64MS/s", blocks=int(blocks), frames=n_frames, corr=cc, plots=len(rendered),
-               per_block_ms=dt / blocks * 1e3, msps=cfg.block_samples * blocks / dt / 1e6,
-               hand_built_session_per_block_ms=hand_built_ms)
+               per_block_ms_under_profiler=dt / blocks * 1e3,
+               msps_under_profiler=cfg.block_samples * blocks / dt / 1e6,
+               hand_built_session_per_block_ms_under_profiler=hand_built_ms)
     print("e2e " + json.dumps(row))
 
     frames = []
@@ -748,12 +771,12 @@ def front_door(cfg, tmp, hand_built_ms):
     rx.load_source("rawfile", f"{path} {cfg.samplerate} uint8")
     rx.set_resolution(cfg.height, cfg.refreshrate)
     rx.set_extra_params(resampler="fused")
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    got = rx.start(on_frame=frames.append, max_blocks=8)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    only(counts(), fused_demod_resample_cuda=8)
+    with card_counts() as launches:
+        t0 = time.perf_counter()
+        got = rx.start(on_frame=frames.append, max_blocks=8)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    only(launches, fused_demod_resample_cuda=8)
     rx.close()
     whole = int(8 * cfg.block_samples // (cfg.frame_pixels * cfg.samples_per_pixel))
     assert got == len(frames) >= whole and all(
@@ -761,7 +784,7 @@ def front_door(cfg, tmp, hand_built_ms):
     cc = float(np.corrcoef(frames[0].ravel(), expected_frame(cfg, raster).ravel())[0, 1])
     assert cc > CORR_MIN, f"TSDR fused: frame correlation {cc}"
     print("e2e " + json.dumps(dict(path="TSDR fused 64MS/s", blocks=8, frames=got, corr=cc,
-                                   per_block_ms=dt / 8 * 1e3)))
+                                   per_block_ms_under_profiler=dt / 8 * 1e3)))
     return row
 
 
@@ -772,12 +795,12 @@ def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
     path = os.path.join(tmp, "capture8.u8")
     write_capture(cfg, path, 24)
     out = os.path.join(tmp, "frames8")
-    kernels.reset_launch_counts()
-    log, dt = run_cli([
-        "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
-        "--block-samples", str(cfg.block_samples), "--height", str(wrong_height),
-        "--rate", str(cfg.refreshrate), "--blocks", "40", "--out", out, "--save-every", "20",
-        "--format", "npy", "--auto-resolution", "--auto-apply"])
+    with card_counts() as launches:
+        log, dt = run_cli([
+            "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
+            "--block-samples", str(cfg.block_samples), "--height", str(wrong_height),
+            "--rate", str(cfg.refreshrate), "--blocks", "40", "--out", out, "--save-every",
+            "20", "--format", "npy", "--auto-resolution", "--auto-apply"])
     pick = lambda word: [i for i, line in enumerate(log) if line.startswith(word)]  # noqa: E731
     detected, ready, applied = (pick(w) for w in (
         "AUTO-RESOLUTION", "warm start ready", "applying detected mode"))
@@ -792,10 +815,11 @@ def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
     old = PipelineConfig(samplerate=cfg.samplerate, height=wrong_height,
                          refreshrate=cfg.refreshrate, block_samples=cfg.block_samples)
     assert shapes[0] == (wrong_height, old.width) and shapes[-1] == (cfg.height, cfg.width), shapes
-    launches = counts()
-    # the first session's blocks (until the warm thread stopped it), the
-    # warm start's one, the restarted session's 40
-    assert 42 <= launches["box_resample_strided_cuda"] <= 81, launches
+    # the first session's blocks (until the warm thread stopped it), each
+    # runner's warm-up block before its capture (the first session's, the
+    # warm start's) and replayed block (the warm start's one), the restarted
+    # session's 40
+    assert 43 <= launches["box_resample_strided_cuda"] <= 82, launches
     only(launches, box_resample_strided_cuda=launches["box_resample_strided_cuda"])
     print("auto-resolution round trip (8MS/s): " + json.dumps(dict(
         detected=log[detected[0]], applied=log[applied[0]], shapes=shapes,
@@ -804,7 +828,8 @@ def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
 
 def batched_session(cfg, n_blocks=12):
     """Phase 7a: batch_blocks=4 against 1 on the same blocks: the same
-    kernels in the same order, so the frames are equal bit for bit."""
+    kernels in the same order (one graph replay a batch), so the frames are
+    equal bit for bit; K1 once a block on the card (profiler count)."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     src_blocks = ReplayU8(cfg, raster, n_blocks).blocks
     runs = {}
@@ -814,21 +839,21 @@ def batched_session(cfg, n_blocks=12):
         frames = []
         sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append),
                        batch_blocks=batch, device=DEV)
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        sess.run()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / n_blocks * 1e3
-        only(counts(), box_resample_strided_cuda=n_blocks)
+        warm_compile_step(cfg, Params(), batch_blocks=batch, raw_dtype=np.uint8, device=DEV)
+        with card_counts() as launches:
+            t0 = time.perf_counter()
+            sess.run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / n_blocks * 1e3
+        only(launches, box_resample_strided_cuda=n_blocks)
         runs.setdefault(batch, dict(frames=frames, ms=[]))["ms"].append(ms)
     f1, f4 = runs[1]["frames"], runs[4]["frames"]
     assert len(f1) == len(f4) >= n_blocks * cfg.block_samples // (
         cfg.frame_pixels * cfg.samples_per_pixel) - 1
     assert all(np.array_equal(a, b) for a, b in zip(f1, f4)), "batch 4 frames differ from batch 1"
-    print("batched session (64MS/s, in turns 1, 4, 4, 1): " + json.dumps(dict(
-        blocks=n_blocks, frames=len(f1), per_block_ms_batch1=runs[1]["ms"],
-        per_block_ms_batch4=runs[4]["ms"], frames_equal=True)))
+    print("batched session (64MS/s, in turns 1, 4, 4, 1, under the profiler): " + json.dumps(
+        dict(blocks=n_blocks, frames=len(f1), per_block_ms_batch1=runs[1]["ms"],
+             per_block_ms_batch4=runs[4]["ms"], frames_equal=True)))
 
 
 def live_controls(cfg, tmp):
@@ -893,16 +918,16 @@ def superresolution(cfg, native_rate=16e6):
     frames = []
     sess = Session(cfg, Params(superresolution=True), src,
                    SessionCallbacks(on_frame=frames.append), device=DEV)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    got = sess.run()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    warm_compile_step(cfg, Params(superresolution=True), raw_dtype=np.float32, device=DEV)
+    with card_counts() as launches:
+        t0 = time.perf_counter()
+        got = sess.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     blocks = sess.meter.total_samples // cfg.block_samples
     # one stitched cycle of 4 * 2^21 samples, in whole blocks
     assert blocks == 4 * sb.n // cfg.block_samples, blocks
-    only(counts(), box_resample_strided_cuda=blocks)
+    only(launches, box_resample_strided_cuda=blocks)
     assert got == len(frames) >= 6 and all(
         f.shape == (cfg.height, cfg.width) and np.isfinite(f).all() for f in frames)
     assert frames[-1].std() > 0
@@ -959,7 +984,9 @@ def first_block(mode):
     sess.run(max_blocks=1)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    assert box_resample_strided_cuda.launches == (2 if mode == "warm" else 1)
+    # the wrapper's count: one eager block before the capture, one captured
+    # (which warm_compile_step makes in the warm mode, the session in the cold)
+    assert box_resample_strided_cuda.launches == 2
     print(json.dumps(dict(mode=mode, first_block_ms=ms, warm_compile_step_ms=warm_ms)))
 
 
@@ -1187,12 +1214,13 @@ def simlive_session(cfg, n_blocks=8):
                                  f"{cfg.samplerate} 0.02 pace=1 ring=8")
     frames = []
     sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append), device=DEV)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    sess.run(max_blocks=n_blocks)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    only(counts(), box_resample_strided_cuda=n_blocks)
+    warm_compile_step(cfg, Params(), raw_dtype=src.block_dtype(), device=DEV)
+    with card_counts() as launches:
+        t0 = time.perf_counter()
+        sess.run(max_blocks=n_blocks)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    only(launches, box_resample_strided_cuda=n_blocks)
     assert frames and all(f.shape == (cfg.height, cfg.width) and np.isfinite(f).all()
                           for f in frames)
     chunk = max(int(0.06 * cfg.samplerate), 1024)
@@ -1447,7 +1475,8 @@ def check_range_entry(cfg, T=T_RANKS):
 def tui_over_pty(cfg, n_blocks=3):
     """cli.main([... "--tui" ...]) in this process with a pty as its
     terminal, 8 MS/s on the card: the viewer streams n_blocks (K1 once per
-    block, no other kernel) and writes half-block video and its status bar."""
+    block on the card, no other kernel) and writes half-block video and its
+    status bar."""
     import fcntl
     import pty
     import struct
@@ -1469,15 +1498,15 @@ def tui_over_pty(cfg, n_blocks=3):
     saved = sys.stdin, sys.stdout
     sys.stdin = os.fdopen(slave, "rb", buffering=0, closefd=False)
     sys.stdout = os.fdopen(slave, "w", buffering=1, closefd=False)
-    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rc = cli.main(["--source", "synthetic", "--source-params",
-                       f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} {cfg.samplerate} 0.02",
-                       "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
-                       "--rate", str(cfg.refreshrate), "--tui", "--blocks", str(n_blocks),
-                       "--batch-blocks", "1"])  # "auto" (--tui's default) may round the
-        # blocks up to a whole batch; the CPU tests drive the default
+        with card_counts() as launches:
+            rc = cli.main(["--source", "synthetic", "--source-params",
+                           f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} {cfg.samplerate} 0.02",
+                           "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
+                           "--rate", str(cfg.refreshrate), "--tui", "--blocks", str(n_blocks),
+                           "--batch-blocks", "1"])  # "auto" (--tui's default) may round
+        # the blocks up to a whole batch; the CPU tests drive the default
     finally:
         sys.stdin, sys.stdout = saved
     dt = time.perf_counter() - t0
@@ -1488,10 +1517,14 @@ def tui_over_pty(cfg, n_blocks=3):
     os.close(master)
     text = b"".join(out)
     assert rc == 0, rc
-    only(counts(), box_resample_strided_cuda=n_blocks)
+    # one more where the session captured its graph in the run (its eager
+    # block before the capture)
+    k1 = launches["box_resample_strided_cuda"]
+    assert n_blocks <= k1 <= n_blocks + 1, launches
+    only(launches, box_resample_strided_cuda=k1)
     done = [ln for ln in text.decode(errors="replace").splitlines() if "tui done:" in ln]
     assert done and b"\xe2\x96\x80" in text and b"fps" in text, text[-500:]
-    return dict(blocks=n_blocks, k1_launches=n_blocks, log=done[-1].split("] ", 1)[-1],
+    return dict(blocks=n_blocks, k1_launches=k1, log=done[-1].split("] ", 1)[-1],
                 terminal_bytes=len(text), wall_s=dt)
 
 
@@ -1576,6 +1609,241 @@ def hold_ranks(name, res, launches, groups=lambda r: 0, tol=SHARD_TOL):
                 replicas_equal=True)
 
 
+# ---- the graph step --------------------------------------------------------
+
+KERNEL_NAMES = {  # wrapper -> its CUDA kernel's name in a profiler trace
+    "box_resample_strided_cuda": "strided_resample_kernel<false>",
+    "box_resample_range_strided_cuda": "strided_resample_kernel<true>",
+    "fused_demod_resample_cuda": "fused_kernel<2>",
+    "fused_demod_resample_u16_cuda": "fused_kernel<1>",
+    "box_resample_pallas_cuda": "chunked_resample_kernel",
+    "box_resample_pallas_windows_cuda": "windows_resample_kernel",
+    "gather_windows": "gather_windows_kernel",
+}
+GRAPH_TOL = 1e-4  # the device step against the host-branching Step on the card,
+# frames max abs diff: the same kernels, but a select (torch.where over the
+# post-process's outputs) where the host step branches, and the autoshift
+# roll as two gathers; STEP_TOL["default"]'s class
+
+
+@contextlib.contextmanager
+def card_counts():
+    """{wrapper name: launches of its kernel on the card} in the enclosed
+    code, counted by kernel name in a torch.profiler trace, so a CUDA-graph
+    replay's launches count (a wrapper's own count sees its eager launches
+    and the captures, not the replays). Filled in on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    got = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield got
+        torch.cuda.synchronize()
+    seen = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    for wrapper, name in KERNEL_NAMES.items():
+        got[wrapper] = sum(c for k, c in seen if name in k)
+
+
+def eager_outputs(step, state, raws, controls):
+    """The step block by block; per field, the outputs stacked over the
+    blocks (as a runner stacks them)."""
+    outs = []
+    for raw, ctl in zip(raws, controls):
+        state, out = step(state, raw, StepControls(*ctl))
+        outs.append(out)
+    return StepOutputs(*(torch.stack(list(v)) for v in zip(*outs)))
+
+
+def batches_of(runner, raws, controls, k):
+    """The runner over the blocks in batches of k from a fresh state (after
+    one batch on a scratch state, which captures): outputs stacked over
+    every block, and the launches on the card of the counted batches."""
+    cfg = runner.config
+    runner.run(init_state(cfg, runner.params.fir_lowpass_taps, device=DEV),
+               torch.stack(raws[:k]), np.zeros((k, 3)))
+    state = init_state(cfg, runner.params.fir_lowpass_taps, device=DEV)
+    outs = []
+    with card_counts() as launches:
+        for b in range(0, len(raws), k):
+            state, out, _ = runner.run(state, torch.stack(raws[b:b + k]), controls[b:b + k])
+            outs.append(StepOutputs(*(x.clone() for x in out)))
+    return StepOutputs(*(torch.cat(list(v)) for v in zip(*outs))), launches
+
+
+def same_outputs(got, want, what):
+    for name, a, b in zip(StepOutputs._fields, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), (what, name)
+
+
+def held_to_host_step(got, want, what):
+    """Integer outputs equal, frames within GRAPH_TOL; returns the worst
+    frame difference."""
+    for f in CHANNEL_INTS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
+    err = (got.frame - want.frame).abs().max().item()
+    assert err <= GRAPH_TOL, (what, err)
+    return err
+
+
+def graph_session(cfg, params, blocks, batch, count=False, spent=None):
+    """Session.run(batch_blocks=batch) over the blocks, the runner warmed
+    first (warm_compile_step): (frames, seconds, packed fetches, launches
+    on the card or None). With a dict `spent`, the host seconds of the run
+    in the runner's run, the fetch and the downloads add up in it."""
+    warm_compile_step(cfg, params, batch_blocks=batch, raw_dtype=np.uint8, device=DEV)
+    src = ReplayU8(cfg, render_test_pattern(cfg.height, cfg.width // 2), 0)
+    src.blocks = blocks
+    frames = []
+    sess = Session(cfg, params, src, SessionCallbacks(on_frame=frames.append),
+                   batch_blocks=batch, device=DEV)
+    fetches = []
+    undo = [] if spent is None else [
+        _timed(BlockRunner, "run", spent), _timed(torch.Tensor, "tolist", spent),
+        _timed(session_mod, "_download", spent)]
+    real = torch.Tensor.tolist
+    torch.Tensor.tolist = lambda self: (fetches.append(1), real(self))[1]
+    try:
+        torch.cuda.synchronize()
+        with (card_counts() if count else contextlib.nullcontext({})) as launches:
+            t0 = time.perf_counter()
+            sess.run()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        torch.Tensor.tolist = real
+        for u in undo[::-1]:
+            u()
+    return frames, dt, len(fetches), (launches if count else None)
+
+
+def graph_step_phase(cfg, smi, n_blocks=24):
+    """The device step and its graph runner on the card, at 64 MS/s with
+    default Params unless said: the eager device step under
+    set_sync_debug_mode("error"); the runner at batch 1, 4 and 8 against
+    the eager device step (every output bit for bit) and the host-branching
+    Step (integers exact, frames within GRAPH_TOL); Session(batch_blocks=K)
+    for K in 1, 4, 8 (frames equal to the eager step's, one packed fetch a
+    batch, K1 once a block by profiler count), timed in turns; the busy
+    share at batch 8 under profile_trace; the one-block replay floor; the
+    fused, pallas and pallas_windows resamplers at batch 4 (bit for bit,
+    each kernel once a block); and 8 MS/s (K == 4) at batch 4 with a drop in
+    slot 2 and a sync shift in slot 0. Returns K1's and K2's launches per
+    graph path."""
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    blocks = ReplayU8(cfg, raster, n_blocks).blocks
+    raws = [torch.from_numpy(b).to(DEV) for b in blocks]
+    zero = [(0, 0, 0.0)] * n_blocks
+    step = make_step(cfg, Params(), device=DEV)
+    state = init_state(cfg, device=DEV)
+    state, _ = step(state, raws[0], StepControls())  # cuFFT plan, library load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b, ctl in enumerate([(0, 0, 0.2), (0, 321, 0.2), (4000, 0, 0.2), (0, 0, 0.2)]):
+            state, _ = step(state, raws[b], StepControls(*ctl))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("graph step: the eager device step ran 4 blocks under set_sync_debug_mode('error') "
+          "with no synchronizing call")
+
+    eager = eager_outputs(step, init_state(cfg, device=DEV), raws, zero)
+    host = eager_outputs(pipeline_mod.Step(cfg, Params(), DEV), init_state(cfg, device=DEV),
+                         raws, zero)
+    worst = held_to_host_step(eager, host, "eager device step")
+    frames_eager = [eager.frame[b].cpu().numpy() for b in range(n_blocks) if eager.frame_valid[b]]
+    by_path = {}
+    rows = {}
+    for k in (1, 4, 8):
+        got, launches = batches_of(BlockRunner(cfg, Params(), k, DEV), raws, zero, k)
+        same_outputs(got, eager, f"runner batch {k}")
+        worst = max(worst, held_to_host_step(got, host, f"runner batch {k}"))
+        only(launches, box_resample_strided_cuda=n_blocks)
+        frames, _, fetches, launches = graph_session(cfg, Params(), blocks, k, count=True)
+        only(launches, box_resample_strided_cuda=n_blocks)
+        assert fetches == n_blocks // k, (k, fetches)
+        assert len(frames) == len(frames_eager) and all(
+            np.array_equal(a, b) for a, b in zip(frames, frames_eager)), f"Session batch {k}"
+        by_path[f"graph Session batch {k} 64MS/s, {n_blocks} blocks"] = launches[
+            "box_resample_strided_cuda"]
+        rows[k] = []
+    block_s = cfg.block_samples / cfg.samplerate
+    for k in (1, 4, 8, 8, 4, 1):
+        _, dt, _, _ = graph_session(cfg, Params(), blocks, k)
+        rows[k].append(dt / n_blocks * 1e3)
+    timing = {f"batch {k}": dict(per_block_ms=ms, msps=[cfg.block_samples / m / 1e3 for m in ms],
+                                 x_realtime=[block_s * 1e3 / m for m in ms])
+              for k, ms in rows.items()}
+    for k in (1, 8):  # where a block's host time goes, by batch size
+        spent = {}
+        _, dt, _, _ = graph_session(cfg, Params(), blocks, k, spent=spent)
+        split = {("upload + replay" if name == "run" else "fetch (waits for the replay)"
+                  if name == "tolist" else "frame and plot downloads"): v * 1e3 / n_blocks
+                 for name, v in spent.items()}
+        split["the rest (source, stacking, callbacks)"] = dt * 1e3 / n_blocks - sum(split.values())
+        timing[f"batch {k}"]["split_ms_per_block"] = split
+    warm_compile_step(cfg, Params(), batch_blocks=8, raw_dtype=np.uint8, device=DEV)
+    src = ReplayU8(cfg, raster, 0)
+    src.blocks = blocks
+    sess = Session(cfg, Params(), src, batch_blocks=8, device=DEV)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile_trace(logdir) as prof:
+            t0 = time.perf_counter()
+            sess.run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    busy = dict(wall_ms_per_block=wall_ms / n_blocks, device_ms_per_block=dev_ms / n_blocks,
+                device_busy_share=dev_ms / wall_ms,
+                device_ops_per_block=sum(e.count for e in events) / n_blocks)
+    floors = dict(dispatch_floor_us=measure_dispatch_floor(device=DEV) * 1e6,
+                  one_block_replay_and_fetch_us=[
+                      measure_replay_floor(cfg, device=DEV) * 1e6 for _ in range(2)])
+    print("graph step (64MS/s, default Params, Session timed in turns 1, 4, 8, 8, 4, 1, then "
+          "split at 1 and 8) "
+          + json.dumps(dict(card=smi, blocks=n_blocks, timing=timing,
+                            busy_under_profile_trace_batch8=busy, floors=floors,
+                            worst_frame_diff_vs_host_step=worst)))
+
+    k2 = {}
+    for resampler, names in (("fused", ("fused_demod_resample_cuda",)),
+                             ("pallas", ("box_resample_pallas_cuda",)),
+                             ("pallas_windows", ("box_resample_pallas_windows_cuda",
+                                                 "gather_windows"))):
+        params = Params(resampler=resampler)
+        want = eager_outputs(make_step(cfg, params, device=DEV), init_state(cfg, device=DEV),
+                             raws[:8], zero[:8])
+        got, launches = batches_of(BlockRunner(cfg, params, 4, DEV), raws[:8], zero[:8], 4)
+        same_outputs(got, want, f"runner batch 4 {resampler}")
+        only(launches, **{name: 8 for name in names})
+        k2[resampler] = launches[names[0]]
+
+    g8 = GEOMETRIES["8MS/s"]
+    assert g8.frames_per_block == 4
+    blocks8 = [torch.from_numpy(b).to(DEV)
+               for b in ReplayU8(g8, render_test_pattern(g8.height, g8.width // 2), 8).blocks]
+    # the session's contract: the drop in its own slot, the sync shift in slot 0
+    ctl8 = [(0, 1234, 0.3), (0, 0, 0.3), (37777, 0, 0.3)] + [(0, 0, 0.3)] * 5
+    want = eager_outputs(make_step(g8, Params(), device=DEV), init_state(g8, device=DEV),
+                         blocks8, ctl8)
+    host8 = eager_outputs(pipeline_mod.Step(g8, Params(), DEV), init_state(g8, device=DEV),
+                          blocks8, ctl8)
+    got, launches = batches_of(BlockRunner(g8, Params(), 4, DEV), blocks8,
+                               np.array(ctl8, np.float64), 4)
+    same_outputs(got, want, "runner batch 4 8MS/s")
+    err8 = held_to_host_step(got, host8, "runner batch 4 8MS/s")
+    only(launches, box_resample_strided_cuda=8)
+    assert int(got.frame_valid.sum()) > 8 and int(got.n_pixels[2]) < int(got.n_pixels[1])
+    print("graph step (fused/pallas/pallas_windows at batch 4, 8 blocks; 8MS/s K == 4 at "
+          "batch 4 with a drop in slot 2 and a sync shift in slot 0) " + json.dumps(dict(
+              card=smi, launches=k2, frames_8MS=int(got.frame_valid.sum()),
+              worst_frame_diff_vs_host_step_8MS=err8)))
+    return by_path, {"graph runner batch 4 fused 64MS/s, 8 blocks": k2["fused"]}
+
+
+
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
     "K1": (box_resample_strided_cuda, "strided_resample.cu",
            "tempestsdr_tpu/pallas/strided_kernel.py:65"),
@@ -1640,9 +1908,10 @@ def main():
           + json.dumps(check_against_cpu(GEOMETRIES["8MS/s"])))
     profile_steady(g64)
     print(f"per-block host fetch round trip: {fetch_cost_us():.1f} us")
+    graph_launches, graph_k2 = graph_step_phase(g64, smi)
 
     with tempfile.TemporaryDirectory() as tmp:
-        front_door(g64, tmp, rows["K1"]["per_block_ms"])
+        front_door(g64, tmp, rows["K1"]["per_block_ms_under_profiler"])
         auto_resolution_round_trip(GEOMETRIES["8MS/s"], tmp)
         batched_session(g64)
         live_controls(g64, tmp)
@@ -1667,6 +1936,7 @@ def main():
                     launches[kid],
                 ("MultiSession 8x16MS/s, 12 blocks" if kid == "K1"
                  else "fused hybrid channels step 8x16MS/s, 4 blocks"): channel_launches[kid]}
+            kern[-1]["launches_by_path"].update(graph_launches if kid == "K1" else graph_k2)
         if kid == "K1":
             kern[-1]["launches_by_path"].update(sharded_launches)
             kern[-1]["range_entry"] = dict(

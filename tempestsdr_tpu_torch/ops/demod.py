@@ -69,5 +69,5 @@ def demod_raw_interleaved(raw: torch.Tensor) -> torch.Tensor:
             pair = pair - 128.0
         scale = 1.0 / 32767.0 if raw.dtype == torch.int16 else 1.0 / 128.0
         a, b = pair[:, 0], pair[:, 1]
-        return _sqrt(a * a + b * b) * torch.tensor(scale, dtype=torch.float32)
+        return _sqrt(a * a + b * b) * torch.full((), scale, dtype=torch.float32, device=raw.device)
     return am_demod(normalize_iq(raw))

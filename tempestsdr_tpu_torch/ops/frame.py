@@ -9,6 +9,12 @@ import torch
 SPECIAL_THRESHOLD = 250.0  # dsp.c:57 — values beyond this are debug markers
 
 
+def _f32(v: float, device) -> torch.Tensor:
+    """A 0-d float32 constant made on `device` by a fill, not a host copy
+    (a host -> device copy cannot be captured into a CUDA graph)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
+
+
 def time_lowpass(screenbuffer: torch.Tensor, frame: torch.Tensor, motionblur) -> torch.Tensor:
     """IIR frame averaging (dsp.c:22-33): screen*mb + frame*(1-mb), f32."""
     mb = torch.as_tensor(motionblur, dtype=torch.float32, device=frame.device)
@@ -28,12 +34,12 @@ def autogain_run(frame: torch.Tensor, lastmin, lastmax, norm: float = 0.1,
     f = frame
     flat0 = f.reshape(-1)[0]
     special = (f > SPECIAL_THRESHOLD) | (f < -SPECIAL_THRESHOLD)
-    big = torch.tensor(3.4e38, dtype=torch.float32, device=f.device)
+    big = _f32(3.4e38, f.device)
     cur_min = torch.minimum(torch.where(special, big, f).min(), flat0)
     cur_max = torch.maximum(torch.where(special, -big, f).max(), flat0)
 
-    one_minus = torch.tensor(1.0 - norm, dtype=torch.float32, device=f.device)
-    norm_t = torch.tensor(norm, dtype=torch.float32, device=f.device)
+    one_minus = _f32(1.0 - norm, f.device)
+    norm_t = _f32(norm, f.device)
     lastmax2 = one_minus * lastmax + norm_t * cur_max
     lastmin2 = one_minus * lastmin + norm_t * cur_min
     span = torch.where(lastmax2 == lastmin2, torch.ones_like(lastmax2), lastmax2 - lastmin2)

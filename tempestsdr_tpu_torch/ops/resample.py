@@ -36,7 +36,9 @@ _INV_SCALE = 2.0 ** (-FRAC_BITS)  # exact in f32
 
 
 def _f32(v: float, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    """A 0-d float32 constant made on `device` by a fill (capturable into a
+    CUDA graph, unlike a host -> device copy)."""
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def resample_counts(phase_fix: torch.Tensor, inv_fix: torch.Tensor, n_samples: int):

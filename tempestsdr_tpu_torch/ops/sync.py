@@ -11,8 +11,9 @@ reference form, on no step path). Profile math follows the profile's dtype: f64 
 under Params.fast_sync.
 
 Everything stays on the profile's device: the per-candidate window sums are
-one gather of the doubled cumsum at device-side offsets, so the search needs
-no host round trip.
+one gather of the doubled cumsum at device-side offsets, and the winner is
+taken with torch.take, so the search needs no host round trip and can be
+captured into a CUDA graph.
 """
 
 from __future__ import annotations
@@ -86,8 +87,10 @@ def _candidate_sizes(state: SweetspotState, n: int, minsize: int):
     size2 = n >> 1
     curr = torch.clamp(state.stripsize, minsize, size2)
     cand = torch.stack([curr, curr - 4, curr + 4, curr >> 1, curr << 1]).to(torch.int32)
-    valid = (cand >= minsize) & (cand < size2) & (cand != curr)
-    valid[0] = True  # base size always evaluated
+    # the base size is always evaluated (an OR, not valid[0] = True: a
+    # Python value written into a card tensor is a host -> device copy)
+    first = torch.arange(5, device=cand.device) == 0
+    valid = (cand >= minsize) & (cand < size2) & (cand != curr) | first
     safe = torch.where(valid, cand, curr)
     return safe, valid
 
@@ -102,8 +105,8 @@ def _iir_track(state: SweetspotState, beststripsize, beststripstart, n: int,
     dx0 = torch.where(rawdiff > h2, state.dx + n, state.dx)
     dxnl = torch.where(rawdiff < -h2, dxnl + n, dxnl)
     lastx = dx0
-    c = torch.tensor(lowpasscoeff, dtype=dt, device=dxnl.device)
-    one = torch.tensor(1.0, dtype=dt, device=dxnl.device)
+    c = torch.full((), lowpasscoeff, dtype=dt, device=dxnl.device)
+    one = torch.full((), 1.0, dtype=dt, device=dxnl.device)
     dx1 = torch.remainder(
         torch.round(dxnl.to(dt) * c + (one - c) * dx0.to(dt)).to(torch.int64), n
     ).to(torch.int32)
@@ -129,15 +132,16 @@ def find_the_sweet_spot(state: SweetspotState, data: torch.Tensor, minsize: int,
     idx = safe.to(torch.int64)[:, None] + torch.arange(n, device=data.device)[None, :]
     w = csum[idx] - lo[None, :]
     s = safe.to(dt)[:, None]
-    m = (totalsum - w) / (torch.tensor(float(n), dtype=dt, device=data.device) - s) - w / s
+    m = (totalsum - w) / (torch.full((), float(n), dtype=dt, device=data.device) - s) - w / s
     m = m * m
     j = torch.argmax(m, dim=1).to(torch.int32)  # first maximum: first-wins
     neg_inf = torch.full((5,), float("-inf"), dtype=dt, device=data.device)
     fits = torch.where(valid, m.max(dim=1).values, neg_inf)
     ids = torch.clamp(j - 1, min=0)  # the reference's id-off-by-one (:46-56)
+    # torch.take, not ids[win]: indexing by a 0-d tensor reads it on the host
     win = torch.argmax(fits)
-    beststripstart = ids[win]
-    beststripsize = safe[win]
+    beststripstart = torch.take(ids, win)
+    beststripsize = torch.take(safe, win)
     state = _iir_track(state, beststripsize, beststripstart, n, lowpasscoeff, dt=dt)
     return state, data, beststripstart
 
@@ -172,7 +176,8 @@ def find_the_sweet_spot_pair(state_x: SweetspotState, data_x: torch.Tensor, mins
                     csum[1][safe_y.to(torch.int64)[:, None] + span]])
     w = hi - csum[:, :L].repeat_interleave(5, dim=0)
     s = torch.cat([safe_x, safe_y]).to(f64)[:, None]
-    n_row = torch.tensor([float(nx)] * 5 + [float(ny)] * 5, dtype=f64, device=dev)[:, None]
+    n_row = torch.cat([torch.full((5,), float(nx), dtype=f64, device=dev),
+                       torch.full((5,), float(ny), dtype=f64, device=dev)])[:, None]
     t_row = torch.cat([tx.expand(5), ty.expand(5)]).to(f64)[:, None]
     m = (t_row - w) / (n_row - s) - w / s
     m = m * m
@@ -182,9 +187,10 @@ def find_the_sweet_spot_pair(state_x: SweetspotState, data_x: torch.Tensor, mins
                        torch.full((10,), float("-inf"), dtype=f64, device=dev))
     ids = torch.clamp(j - 1, min=0)  # the reference's id-off-by-one (:46-56)
     win_x, win_y = torch.argmax(fits[:5]), torch.argmax(fits[5:])
-    sx = _iir_track(state_x, safe_x[win_x], ids[win_x], nx, coeff_x)
-    sy = _iir_track(state_y, safe_y[win_y], ids[5 + win_y], ny, coeff_y)
-    return sx, sy, (bx, by), (ids[win_x], ids[5 + win_y])
+    start_x, start_y = torch.take(ids, win_x), torch.take(ids, 5 + win_y)
+    sx = _iir_track(state_x, torch.take(safe_x, win_x), start_x, nx, coeff_x)
+    sy = _iir_track(state_y, torch.take(safe_y, win_y), start_y, ny, coeff_y)
+    return sx, sy, (bx, by), (start_x, start_y)
 
 
 def framerate_pll(pll: PLLState, vx, *, enabled: bool, max_delta: float | None = None) -> PLLState:

@@ -18,25 +18,30 @@ reference's threads do (SURVEY.md §3.2-3.4), as tempestsdr_tpu's make_step:
      per completed frame: autogain / collapse / sync search / PLL /
      autoshift or markers / motion-blur IIR
 
-Where the JAX step branches on device values with lax.cond (sync skip,
-emit, the K > 1 slots, the FFT round, K1's margin fallback), this step reads
-the few integers they depend on in ONE host fetch per block — n_out, drop
-flag, fold fill, pending skip and ring fill, packed into one tensor — and
-branches in Python. The slices the JAX step takes at traced offsets become
-plain slices at those host offsets, asserted in range (lax.dynamic_slice
-would clamp). K1 and K2 need no branch: their tap loops cover the whole
-PLL headroom. Autoshift needs the detected position as a roll shift, one more
-fetch per emitted frame, only with Params.autoshift.
+make_step returns the device step (DeviceStep, built by _make_step_parts as
+the JAX package builds its step): one device program that reads nothing to
+the host between the raw block going in and the outputs coming out. Every
+lax.cond of the JAX step is a select here, as a vmap turns it into one: the
+FFT round and each emit slot's post-process run every block, and their
+results are committed with torch.where on the device predicate (round_done,
+fill2 >= (k+1)*frame_pixels); a slot that does not fire gives zeros. Every
+offset the JAX step traces (the ring write at fill0, the sync skip by k,
+the fold write at fill, the leftover move from emitted*frame_pixels, the
+autoshift roll) is device index arithmetic, base + arange, kept in range by
+the buffer lengths (state.framebuf_len, the ring's ac_round + block). The
+controls ride as 0-d tensors. So K steps can be captured into one CUDA graph
+(stream/graph.py), as the JAX package scans K steps in one program.
 
-The step is two parts around that fetch: Step.device_part (drop
+Step is the host-branching form the channel steps (below) and the sharded
+steps (parallel/timeshard.py) are built from: Step.device_part (drop
 compensation, the PLL rate, demod or K2, the FIR, the resample; it ends in
-the five integers) and Step.host_part (ring write and FFT round, sync skip,
-fold, emit and post-process, assembly; it starts from them). The channel
-steps below compose the same parts over a leading channel axis with ONE
-fetch for all channels per block.
+five integers: n_out, drop flag, fold fill, pending skip and ring fill),
+ONE host fetch of those, then Step.host_part (ring write and FFT round,
+sync skip, fold, emit and post-process, assembly), which branches in
+Python and slices at the fetched offsets, asserted in range.
 
-The step updates the fold buffer and the autocorrelation ring in place: it
-consumes the state it is given, like the JAX Session's donated step.
+Both update the fold buffer and the autocorrelation ring in place: they
+consume the state they are given, like the JAX Session's donated step.
 """
 
 from __future__ import annotations
@@ -80,10 +85,10 @@ from .state import StepOutputs, StreamState, state_from_leaves, state_leaves
 
 class StepControls(NamedTuple):
     """Per-block host inputs: plugin-reported drops, manual sync shift in
-    pixels (tsdr_sync), motion-blur coefficient. Host scalars for the
-    single-channel step; for the channel steps each field may also be a
-    length-C sequence, numpy array or tensor (a scalar applies to every
-    channel)."""
+    pixels (tsdr_sync), motion-blur coefficient. Host scalars or 0-d
+    tensors (the device step moves either onto its device without reading
+    it); for the channel steps each field may also be a length-C sequence,
+    numpy array or tensor (a scalar applies to every channel)."""
 
     samples_dropped: int = 0
     syncoffset: int = 0
@@ -94,9 +99,24 @@ class StepControls(NamedTuple):
         return StepControls(0, 0, 0.0)
 
 
+CONTROL_DTYPES = (torch.int64, torch.int32, torch.float32)  # StepControls' fields
+
+
+def controls_on(controls: StepControls, device) -> StepControls:
+    """StepControls as 0-d tensors of their JAX dtypes on `device`: a
+    tensor is converted on its device (a host tensor is copied up), a host
+    scalar is a fill. Nothing is read back to the host."""
+    out = []
+    for v, dtype in zip(controls, CONTROL_DTYPES):
+        if isinstance(v, torch.Tensor):
+            out.append(v.to(device=device, dtype=dtype).reshape(()))
+        else:
+            out.append(torch.full((), v, dtype=dtype, device=device))
+    return StepControls(*out)
+
+
 class StepHost(NamedTuple):
-    """What the last step branched on, as host values (read by Session so
-    it fetches only what a callback needs)."""
+    """What the last host-branching step branched on, as host values."""
 
     frame_valid: tuple  # one bool per emit slot
     round_done: bool
@@ -183,17 +203,18 @@ def _sync_positions(config: PipelineConfig, params: Params, sync_x, sync_y, pll,
 
 def _sync_apply(params: Params, data2d, sx, sy):
     """Autoshift (circular shift moving the detected strips to the frame
-    edges) or green crosshair markers (syncdetector.c:187-218)."""
+    edges: torch.roll by (-dy, -dx), as two gathers at device-side indices)
+    or green crosshair markers (syncdetector.c:187-218)."""
+    h, w = data2d.shape
+    dev = data2d.device
     if params.autoshift:
-        dy, dx = torch.stack([sy.dx, sx.dx]).tolist()
-        return torch.roll(data2d, shifts=(-dy, -dx), dims=(0, 1))
+        rows = torch.remainder(torch.arange(h, device=dev) + sy.dx, h)
+        cols = torch.remainder(torch.arange(w, device=dev) + sx.dx, w)
+        return data2d.index_select(0, rows).index_select(1, cols)
     if params.debug_markers:
-        h, w = data2d.shape
-        dev = data2d.device
         col = torch.arange(w, dtype=torch.int32, device=dev)[None, :] == sx.dx
         row = torch.arange(h, dtype=torch.int32, device=dev)[:, None] == sy.dx
-        marker = torch.tensor(PIXEL_SPECIAL_VALUE_G, dtype=torch.float32, device=dev)
-        return torch.where(col | row, marker, data2d)
+        return torch.where(col | row, PIXEL_SPECIAL_VALUE_G, data2d)
     return data2d
 
 
@@ -247,21 +268,20 @@ def _post_process(config, params, frame2d, screen, ag, sync_x, sync_y, pll, moti
     return result, screen, ag, sync_x, sync_y, pll
 
 
-def _check_range(start: int, size: int, length: int, what: str) -> None:
-    """A slice the JAX step takes with lax.dynamic_update_slice, which would
-    clamp an out-of-range start; the buffer sizes (state.framebuf_len, the
-    ring's ac_round + block) keep every start in range, and this holds it."""
-    if not (0 <= start and start + size <= length):
-        raise RuntimeError(f"{what} [{start}, {start + size}) outside [0, {length})")
+def _select(pred, a, b):
+    """Commit `a` where the 0-d bool tensor pred holds, else `b`, across
+    matching (named) tuples of tensors; b may hold Python scalars."""
+    if isinstance(a, tuple):
+        vals = [_select(pred, x, y) for x, y in zip(a, b)]
+        return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
+    return torch.where(pred, a, b)
 
 
-class Step:
-    """The single-channel step for one (config, params, device); see the
-    module docstring. `last` holds the host values of the calling thread's
-    latest call: a Step keeps nothing else per call, so a warmed Step may be
-    stepped from a second thread (each on a state of its own) while a
-    session streams. Params.superresolution is the session's business: the
-    step never reads it."""
+class _Blocks:
+    """What both step forms share: the block's geometry, the chosen
+    resampler, the FIR taps and the f32 constants of the PLL-modulated
+    rate, all on one device, and the front of the step (demod, FIR,
+    resample) from the phase after drop compensation."""
 
     def __init__(self, config: PipelineConfig, params: Params, device):
         self.config, self.params = config, params
@@ -277,9 +297,268 @@ class Step:
             raise ValueError("autocorr round shorter than a block; shrink block_samples")
         # two-frame drop-compensation granularity (TSDRLibrary.c:284)
         self.block2 = int(round(2 * config.frame_pixels * config.samples_per_pixel))
-        f32 = lambda v: torch.tensor(np.float32(v), device=self.device)  # noqa: E731
+        f32 = lambda v: torch.full((), float(np.float32(v)), dtype=torch.float32,  # noqa: E731
+                                   device=self.device)
         self.rr_f32 = f32(config.refreshrate)
         self.inv0_f32 = f32(config.inv0_fix)
+
+    def resample_block(self, state: StreamState, raw, phase, env=None):
+        """The PLL-modulated rate, then demod + resample from `phase`: K2 in
+        one launch, or the demod, the optional FIR (the autocorrelation ring
+        takes the pre-FIR envelope) and the chosen resampler. `env` is the
+        block's envelope when the caller demodulated it (raw is then unused).
+        Returns (env, pixels, n_out, phase2, new_tail, fir_tail)."""
+        cfg, params = self.config, self.params
+        n, taps, mp = cfg.block_samples, cfg.resample_taps, cfg.max_block_pixels
+        # the PLL's delta modulates the fixed-point samples-per-pixel, in f32
+        # with the JAX operation order (one unit of inv_fix moves the phase)
+        delta = state.pll.refresh_delta
+        corr_factor = delta / (self.rr_f32 + delta)
+        inv_corr = torch.round(self.inv0_f32 * corr_factor).to(torch.int64)
+        inv_fix = cfg.inv0_fix - inv_corr
+
+        fir_tail = state.fir_tail
+        if env is None and self.fused and raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8):
+            env, pixels, n_out, phase2 = fused_demod_resample_cuda(
+                raw, state.tail, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
+                inv_nominal=cfg.samples_per_pixel)
+            return env, pixels, n_out, phase2, env[n - taps:].clone(), fir_tail
+        if env is None:
+            env = am_demod(normalize_iq(raw))
+        env_rs = env
+        if self.fir_taps is not None:
+            env_rs, fir_tail = fir_apply_block(env, state.fir_tail, self.fir_taps)
+        x_ext = torch.cat([state.tail, env_rs])
+        if params.nearest_neighbour:
+            pixels, n_out, phase2 = nn_resample_block(env_rs, phase, inv_fix, n_samples=n,
+                                                      max_pix=mp)
+        else:
+            pixels, n_out, phase2 = self.resample(
+                x_ext, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
+                inv_nominal=cfg.samples_per_pixel)
+        return env, pixels, n_out, phase2, x_ext[x_ext.shape[0] - taps:].clone(), fir_tail
+
+
+# ---- the device step ---------------------------------------------------------
+
+
+def _make_step_parts(blocks: _Blocks):
+    """The JAX package's _make_step_parts (tempestsdr_tpu/stream/pipeline.py)
+    on one device, its lax.conds as selects:
+
+      pre(state, raw, controls) -> inter     (drops, rate, demod, resample,
+          ring write, sync skip, fold write: the per-sample work)
+      ac_round_fn(ops, round_done) -> ops'   (FFT + running averages and the
+          ring's leftover move, committed where round_done)
+      emit_fn(carry, window, mb) -> (carry', frame)   (one frame's post-process)
+      no_emit_fn(carry, window) -> (carry, 0)         (a slot that does not fire)
+      emit_chain(ops) -> (ops', frames, valid)        (the K emit slots, each
+          committed where fill2 >= (k+1)*frame_pixels, and the leftover move)
+      emit_ops_of / ac_ops_of(state, inter) -> ops
+      assemble(state, inter, ac_ops, emit_ops, frames, valid) -> (state', outputs)
+
+    Every tensor argument is on blocks.device; controls are 0-d tensors
+    (controls_on)."""
+    cfg, params, dev = blocks.config, blocks.params, blocks.device
+    n, mp, fp = cfg.block_samples, cfg.max_block_pixels, cfg.frame_pixels
+    h, w = cfg.height, cfg.width
+    k_frames = cfg.frames_per_block
+    run_autocorr = blocks.run_autocorr
+    if run_autocorr:
+        ac_round, ac_fft = cfg.ac_round_samples, cfg.ac_fft_size
+        fw_off, fw_len = cfg.ac_frame_window
+        lw_off, lw_len = cfg.ac_line_window
+    # index ramps of the traced offsets, made once
+    pix_idx = torch.arange(mp, device=dev)
+    ring_idx = torch.arange(n, device=dev)
+    # the leftover a block's emits leave at emitted*fp: for K == 1 the whole
+    # spill past the frame (framebuf_len - fp == mp), for K > 1 one frame
+    # (the buffer is (K+1)*fp long, so the read never leaves it)
+    left_idx = torch.arange(mp if k_frames == 1 else fp, device=dev)
+    never = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def pre(state: StreamState, raw, controls: StepControls):
+        # ---- drop compensation folded into the phase (dsp.c:313-368):
+        # (skip_before - dropped) % block2 is a floor modulo
+        dropped = controls.samples_dropped
+        skip_before = torch.clamp(state.phase_fix, min=0) >> FRAC_BITS
+        new_skip = torch.where(dropped > 0, torch.remainder(skip_before - dropped, blocks.block2),
+                               skip_before)
+        phase = state.phase_fix + ((new_skip - skip_before) << FRAC_BITS)
+        drop_all = phase >= (n << FRAC_BITS)
+
+        env, pixels, n_out, phase2, new_tail, fir_tail = blocks.resample_block(state, raw, phase)
+
+        # ---- autocorrelation ring (frameratedetector.c:215-230): a drop
+        # purges it, a block past the drop is not fed; the write rewrites
+        # the ring's own values where the block is not fed
+        if run_autocorr:
+            purge = dropped != 0
+            fed = ~drop_all & ~purge
+            fill0 = torch.where(purge, 0, state.ac_fill)
+            at = fill0.to(torch.int64) + ring_idx
+            ac_buf = state.ac_buf
+            ac_buf.index_copy_(0, at, torch.where(fed, env, ac_buf[at]))
+            ac_fill = torch.where(fed, fill0 + n, fill0)
+            round_done = ac_fill >= ac_round
+            ac_fill = torch.where(round_done, ac_fill - ac_round, ac_fill)
+        else:
+            round_done = never
+            ac_buf, ac_fill = state.ac_buf, state.ac_fill
+
+        # ---- manual sync shift as a pixel skip (tsdr_sync): the first k
+        # pixels dropped, zeros shifted in
+        pend = torch.remainder(state.skip_pixels + controls.syncoffset, fp)
+        k = torch.minimum(pend, n_out)
+        src = k.to(torch.int64) + pix_idx
+        pixels = torch.where(src < mp, pixels[src.clamp(max=mp - 1)], 0.0)
+        n_valid = n_out - k
+        pend = pend - k
+
+        # ---- frame fold: pixels past n_valid are zero and rewritten before read
+        framebuf = state.framebuf
+        framebuf.index_copy_(0, state.fill.to(torch.int64) + pix_idx, pixels)
+        fill2 = state.fill + n_valid
+        return dict(phase2=phase2, new_tail=new_tail, fir_tail=fir_tail, pend=pend,
+                    framebuf=framebuf, fill2=fill2, emit=fill2 >= fp, n_out=n_out,
+                    ac_buf=ac_buf, ac_fill=ac_fill, round_done=round_done,
+                    motionblur=controls.motionblur)
+
+    def ac_round_fn(ops, round_done):
+        buf, avg_f, avg_l, calls, last_full = ops
+        r = autocorrelation_magnitude(buf[:ac_fft])
+        calls1 = calls + 1
+        new = (accumulate_running_mean(avg_f, r[fw_off:fw_off + fw_len], calls1),
+               accumulate_running_mean(avg_l, r[lw_off:lw_off + lw_len], calls1),
+               calls1,
+               r[:ac_fft // 2])
+        # the leftover (one block; ac_round >= n, so the ranges are apart)
+        # to the front of the ring
+        m = buf.shape[0] - ac_round
+        buf[:m] = torch.where(round_done, buf[ac_round:], buf[:m])
+        return (buf,) + _select(round_done, new, (avg_f, avg_l, calls, last_full))
+
+    def emit_fn(carry, window, motionblur):
+        screen, ag, sx, sy, pll = carry
+        result, screen, ag, sx, sy, pll = _post_process(cfg, params, window, screen, ag, sx, sy,
+                                                        pll, motionblur)
+        return (screen, ag, sx, sy, pll), result
+
+    def no_emit_fn(carry, window):
+        return carry, 0.0
+
+    def emit_chain(ops):
+        """Every emit slot in stream order: slot k post-processes the fold
+        buffer's k-th frame every block, and commits where fill2 >=
+        (k+1)*fp, the carried state chained through; then one leftover
+        move from emitted*fp to the front (onto itself when nothing was
+        emitted). Returns (ops', frames, valid): frames (h, w) and valid 0-d
+        for K == 1, (K, h, w) and (K,) for K > 1."""
+        framebuf, fill2, screen, ag, sx, sy, pll, motionblur = ops
+        carry = (screen, ag, sx, sy, pll)
+        frames, valids = [], []
+        for slot in range(k_frames):
+            ek = fill2 >= (slot + 1) * fp
+            window = framebuf[slot * fp:(slot + 1) * fp].view(h, w)
+            carry, fk = _select(ek, emit_fn(carry, window, motionblur),
+                                no_emit_fn(carry, window))
+            frames.append(fk)
+            valids.append(ek)
+        valid = torch.stack(valids)
+        emitted = valid.sum(dtype=torch.int32)
+        framebuf[:left_idx.shape[0]] = framebuf[emitted.to(torch.int64) * fp + left_idx]
+        screen, ag, sx, sy, pll = carry
+        emit_ops = (framebuf, fill2 - emitted * fp, screen, ag, sx, sy, pll, motionblur)
+        if k_frames == 1:
+            return emit_ops, frames[0], valids[0]
+        return emit_ops, torch.stack(frames), valid
+
+    def emit_ops_of(state: StreamState, inter):
+        return (inter["framebuf"], inter["fill2"], state.screenbuffer,
+                (state.ag_min, state.ag_max, state.ag_snr), state.sync_x, state.sync_y,
+                state.pll, inter["motionblur"])
+
+    def ac_ops_of(state: StreamState, inter):
+        return (inter["ac_buf"], state.ac_avg_frame, state.ac_avg_line, state.ac_calls,
+                state.ac_last_full)
+
+    def assemble(state: StreamState, inter, ac_ops, emit_ops, frame_out, frame_valid):
+        ac_buf, ac_avg_frame, ac_avg_line, ac_calls, ac_last_full = ac_ops
+        framebuf, fill, screen, ag, sync_x, sync_y, pll, _mb = emit_ops
+        n_emitted = (frame_valid.to(torch.int32) if frame_valid.dim() == 0
+                     else frame_valid.sum(dtype=torch.int32))
+        new_state = StreamState(
+            phase_fix=inter["phase2"], tail=inter["new_tail"], fir_tail=inter["fir_tail"],
+            skip_pixels=inter["pend"], fill=fill, framebuf=framebuf, screenbuffer=screen,
+            ag_min=ag[0], ag_max=ag[1], ag_snr=ag[2], sync_x=sync_x, sync_y=sync_y, pll=pll,
+            runs=state.runs + n_emitted, frame_count=state.frame_count + n_emitted.to(torch.int64),
+            ac_buf=ac_buf, ac_fill=inter["ac_fill"], ac_avg_frame=ac_avg_frame,
+            ac_avg_line=ac_avg_line, ac_calls=ac_calls, ac_last_full=ac_last_full)
+        outputs = StepOutputs(
+            frame=frame_out, frame_valid=frame_valid, n_pixels=inter["n_out"],
+            refreshrate=blocks.rr_f32 + pll.refresh_delta, pll_locked=pll.locked,
+            ag_min=ag[0], ag_max=ag[1], ag_snr=ag[2], sync_dx=sync_x.dx, sync_dy=sync_y.dx,
+            ac_frame_plot=ac_avg_frame, ac_line_plot=ac_avg_line,
+            ac_plot_valid=inter["round_done"], ac_calls=ac_calls)
+        return new_state, outputs
+
+    return (pre, ac_round_fn, emit_fn, no_emit_fn, emit_ops_of, ac_ops_of, assemble,
+            emit_chain)
+
+
+class DeviceStep(_Blocks):
+    """The single-channel device step for one (config, params, device); see
+    the module docstring. It keeps nothing per call, so one DeviceStep may
+    be stepped from several threads, each on a state of its own.
+    Params.superresolution is the session's business: the step never reads
+    it."""
+
+    def __init__(self, config: PipelineConfig, params: Params, device):
+        super().__init__(config, params, device)
+        (self._pre, self._ac_round_fn, _, _, self._emit_ops_of, self._ac_ops_of,
+         self._assemble, self._emit_chain) = _make_step_parts(self)
+
+    def __call__(self, state: StreamState, raw, controls: StepControls = StepControls()):
+        raw = torch.as_tensor(raw).to(self.device)
+        inter = self._pre(state, raw, controls_on(controls, self.device))
+        ac_ops = self._ac_ops_of(state, inter)
+        if self.run_autocorr:
+            ac_ops = self._ac_round_fn(ac_ops, inter["round_done"])
+        emit_ops, frame_out, valid = self._emit_chain(self._emit_ops_of(state, inter))
+        return self._assemble(state, inter, ac_ops, emit_ops, frame_out, valid)
+
+
+def make_step(config: PipelineConfig, params: Params, device="cuda",
+              batched: bool = False) -> DeviceStep:
+    """Build the per-block device step for one channel:
+    step(state, raw [2*block_samples] any supported dtype, controls) ->
+    (state', StepOutputs), reading nothing to the host. batched is accepted
+    for the JAX package's API and changes nothing: its batched step exists
+    for vmap, which the port does not use, so the port's runs the same
+    kernels as the plain one."""
+    return DeviceStep(config, params, device)
+
+
+# ---- the host-branching step -------------------------------------------------
+
+
+def _check_range(start: int, size: int, length: int, what: str) -> None:
+    """A slice the JAX step takes with lax.dynamic_update_slice, which would
+    clamp an out-of-range start; the buffer sizes (state.framebuf_len, the
+    ring's ac_round + block) keep every start in range, and this holds it."""
+    if not (0 <= start and start + size <= length):
+        raise RuntimeError(f"{what} [{start}, {start + size}) outside [0, {length})")
+
+
+class Step(_Blocks):
+    """The host-branching single-channel step for one (config, params,
+    device), the parts of the channel and sharded steps; see the module
+    docstring. `last` holds the host values of the calling thread's latest
+    call: a Step keeps nothing else per call, so it may be stepped from
+    several threads, each on a state of its own."""
+
+    def __init__(self, config: PipelineConfig, params: Params, device):
+        super().__init__(config, params, device)
         self._per_thread = threading.local()
 
     @property
@@ -305,8 +584,7 @@ class Step:
         and the resample. `env` is the block's envelope when the caller
         demodulated it (the channel steps' stacked demod); raw is then
         unused."""
-        cfg, params = self.config, self.params
-        n, taps, mp = cfg.block_samples, cfg.resample_taps, cfg.max_block_pixels
+        n = self.config.block_samples
         dropped = int(controls.samples_dropped)
 
         # ---- drop compensation folded into the phase (dsp.c:313-368):
@@ -316,38 +594,7 @@ class Step:
             skip_before = torch.clamp(phase, min=0) >> FRAC_BITS
             new_skip = torch.remainder(skip_before - dropped, self.block2)
             phase = phase + ((new_skip - skip_before) << FRAC_BITS)
-
-        # ---- the PLL's delta modulates the fixed-point samples-per-pixel, in
-        # f32 with the JAX operation order (one unit of inv_fix moves the phase)
-        delta = state.pll.refresh_delta
-        corr_factor = delta / (self.rr_f32 + delta)
-        inv_corr = torch.round(self.inv0_f32 * corr_factor).to(torch.int64)
-        inv_fix = cfg.inv0_fix - inv_corr
-
-        # ---- demod + resample: K2 in one launch, or the demod, the optional
-        # FIR (the autocorrelation ring takes the pre-FIR envelope) and the
-        # chosen resampler
-        fir_tail = state.fir_tail
-        if env is None and self.fused and raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8):
-            env, pixels, n_out, phase2 = fused_demod_resample_cuda(
-                raw, state.tail, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
-                inv_nominal=cfg.samples_per_pixel)
-            new_tail = env[n - taps:].clone()
-        else:
-            if env is None:
-                env = am_demod(normalize_iq(raw))
-            env_rs = env
-            if self.fir_taps is not None:
-                env_rs, fir_tail = fir_apply_block(env, state.fir_tail, self.fir_taps)
-            x_ext = torch.cat([state.tail, env_rs])
-            if params.nearest_neighbour:
-                pixels, n_out, phase2 = nn_resample_block(env_rs, phase, inv_fix, n_samples=n,
-                                                          max_pix=mp)
-            else:
-                pixels, n_out, phase2 = self.resample(
-                    x_ext, phase, inv_fix, n_samples=n, max_pix=mp, taps=taps,
-                    inv_nominal=cfg.samples_per_pixel)
-            new_tail = x_ext[x_ext.shape[0] - taps:].clone()
+        env, pixels, n_out, phase2, new_tail, fir_tail = self.resample_block(state, raw, phase, env)
 
         drop_all = phase >= (n << FRAC_BITS)
         ints = torch.stack([
@@ -450,7 +697,7 @@ class Step:
                 frame_valid = self._full(valid[0], torch.bool)
             else:
                 frame_out = torch.stack([f if f is not None else zeros() for f in frames])
-                frame_valid = torch.tensor(valid, dtype=torch.bool).to(self.device)
+                frame_valid = torch.stack([self._full(v, torch.bool) for v in valid])
             refreshrate = self.rr_f32 + pll.refresh_delta
         else:
             scalar = lambda v, dtype: v  # noqa: E731
@@ -503,20 +750,6 @@ class Step:
         )
         return new_state, outputs, StepHost(tuple(valid), plan.round_done)
 
-    def warm(self, state: StreamState) -> None:
-        """Run, on `state` and for nothing, the two branches a first block
-        rarely takes: an estimation round (the FFT plan of ac_fft_size) and
-        one frame's post-processing. For warm starts; the results are
-        dropped, but the ring of `state` is shifted as a round shifts it."""
-        if self.run_autocorr:
-            self._ac_round(state.ac_buf, state.ac_avg_frame, state.ac_avg_line, state.ac_calls,
-                           state.ac_last_full)
-        cfg = self.config
-        window = state.framebuf[:cfg.frame_pixels].view(cfg.height, cfg.width)
-        _post_process(cfg, self.params, window, state.screenbuffer,
-                      (state.ag_min, state.ag_max, state.ag_snr), state.sync_x, state.sync_y,
-                      state.pll, 0.0)
-
     def _ac_round(self, buf, avg_f, avg_l, calls, last_full):
         """One estimation round: FFT autocorrelation of the ring's first
         ac_fft samples, running averages over the two lag windows, then the
@@ -533,15 +766,6 @@ class Step:
         # ac_round >= block_samples, so the two ranges do not overlap
         buf[:buf.shape[0] - ac_round] = buf[ac_round:]
         return avg_f, avg_l, calls, last_full
-
-
-def make_step(config: PipelineConfig, params: Params, device="cuda", batched: bool = False) -> Step:
-    """Build the per-block step for one channel:
-    step(state, raw [2*block_samples] any supported dtype, controls) ->
-    (state', StepOutputs). batched is accepted for the JAX package's API
-    and changes nothing: its batched step exists for vmap, which the port
-    does not use, so the port's runs the same kernels as the plain one."""
-    return Step(config, params, device)
 
 
 # ---- the channel steps -----------------------------------------------------
@@ -748,17 +972,23 @@ def make_multi_step(config: PipelineConfig, params: Params, device="cuda"):
 def make_scan_runner(config: PipelineConfig, params: Params, n_blocks: int, device="cuda"):
     """run(state, raw_blocks [n_blocks, 2n], controls) -> (state, outputs
     stacked over the blocks, as lax.scan stacks them). Every block gets the
-    same controls, as in the reference. A plain loop of the step."""
-    step = make_step(config, params, device)
+    same controls, as in the reference. The n_blocks device steps are one
+    CUDA-graph replay on the card (stream/graph.py; the state returned is
+    the runner's, which a caller passes back at no copy) and a loop on the
+    CPU; the outputs are the caller's."""
+    from .graph import BlockRunner
+
+    runner = BlockRunner(config, params, n_blocks, device)
 
     def run(state, raw_blocks, controls: StepControls = StepControls()):
-        raw_blocks = torch.as_tensor(raw_blocks).to(step.device)
+        raw_blocks = torch.as_tensor(raw_blocks)
         if raw_blocks.shape[0] != n_blocks:
             raise ValueError(f"{raw_blocks.shape[0]} blocks, the runner takes {n_blocks}")
-        outs = []
-        for raw in raw_blocks:
-            state, out = step(state, raw, controls)
-            outs.append(out)
-        return state, StepOutputs(*(torch.stack(list(vals)) for vals in zip(*outs)))
+        ctl = torch.stack([torch.as_tensor(v, dtype=torch.float64).reshape(()).to(runner.device)
+                           for v in controls]).expand(n_blocks, 3)
+        state, out, _ = runner.run(state, raw_blocks, ctl)
+        if runner.graphed:
+            out = StepOutputs(*(x.clone() for x in out))
+        return state, out
 
     return run

@@ -4,12 +4,20 @@ TSDRLibrary.c:467-536). Interactive controls (sync shift, motion blur,
 autocorrelation reset/dump, live params, framerate nudge) are plain method
 calls applied between blocks — no locks.
 
-batch_blocks > 1 uploads that many blocks in one stacked copy and runs the
-steps one after another before any frame or plot is fetched, at the cost of
-batch_blocks x block latency for the controls. The step already knows on the
-host which frames and plots completed (Step.last), so a block that completes
-neither costs no fetch here; one that does fetches its frames and one packed
-tensor of the small values.
+The steps run through a BlockRunner (stream/graph.py) of batch_blocks
+blocks: on the card one CUDA-graph replay per batch (batch_blocks=1
+replays a one-block graph), as the JAX Session scans batch_blocks blocks
+per dispatch; on the CPU the same device step in a loop. Per batch: one
+copy of the stacked blocks into the runner, the replay, ONE packed fetch of
+every block's frame-valid flags and small values (plots, meters), then the
+valid frames in one download and the completed rounds' plots in another,
+fanned out to the callbacks in stream order. batch_blocks > 1 costs
+batch_blocks x block latency for the controls.
+
+A session holds its runner's graph state while it runs (the runner's state
+is the session's, updated in place); when the run ends it takes its state
+back in tensors of its own, so a later session of the same key may hold the
+runner.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from ..events import PLOT_ID, VALUE_ID, PlotEvent, ValueEvent
 from ..params import DIRECTION, Params
 from ..sources.base import Source
 from ..utils.profiling import IngestMeter, auto_batch_blocks
-from .pipeline import Step, StepControls, make_step
+from .graph import PACKED, BlockRunner, host_controls
 from .state import (
     StreamState,
     init_state,
@@ -45,12 +53,13 @@ AUTOGAIN_REPORT_EVERY_FRAMES = 5  # dsp.c:20
 # ---- warm start (live-resolution-change support) ---------------------------
 # The reference re-derives geometry mid-stream (tsdr_setresolution ->
 # set_internal_samplerate, TSDRLibrary.c:552-566). Here a geometry is a new
-# Step, and its first block pays what nothing later pays: the build and load
-# of the CUDA kernels (kernels/build.py), the cuFFT plan of ac_fft_size and
-# the allocator's first blocks of each shape. warm_compile_step pays that
-# WHILE the current session still streams, so the stop -> start switch costs
-# only the stream gap. Warmed Steps are cached by (config, params,
-# batch_blocks, device); Session._build_steps reuses them.
+# BlockRunner, and its first batch pays what nothing later pays: the build and
+# load of the CUDA kernels (kernels/build.py), the cuFFT plan of ac_fft_size,
+# the allocator's first blocks and the graph's capture. warm_compile_step
+# pays that WHILE the current session still streams, so the stop -> start
+# switch costs only the stream gap. Runners are cached by (config, params,
+# batch_blocks, device); Session._build_steps takes the cached one or caches
+# the one it builds.
 
 _WARM_LOCK = threading.Lock()
 _WARM_STEPS: dict = {}
@@ -68,53 +77,42 @@ def resolve_batch_blocks(config: PipelineConfig, batch_blocks,
     return max(int(batch_blocks), 1)
 
 
-def _upload(raws: np.ndarray, device) -> torch.Tensor:
-    """One host -> device copy of a block [2n] or a stack of blocks [k, 2n],
-    in the source's raw dtype: uint8/int8 blocks reach K2
-    (resampler="fused") as they come off the source."""
-    return torch.from_numpy(np.ascontiguousarray(raws)).to(device)
-
-
-def _step_blocks(step: Step, state: StreamState, raws, dropped, sync: int, motionblur: float):
-    """Run one step per row of raws. dropped and sync are one-shot events:
-    each block's drop count rides its own slot, the sync shift slot 0 only.
-    Returns the state and, per block in stream order, (StepOutputs,
-    StepHost): Step.last is per call, so it is taken here, before the next
-    step replaces it."""
-    per_block = []
-    for i, dr in enumerate(dropped):
-        controls = StepControls(int(dr), int(sync) if i == 0 else 0, float(motionblur))
-        state, out = step(state, raws[i], controls)
-        per_block.append((out, step.last))
-    return state, per_block
+def _runner_for(config: PipelineConfig, params: Params, batch_blocks: int, device) -> BlockRunner:
+    """The cached runner of this key, built and cached on first use."""
+    key = (config, params, int(batch_blocks), device)
+    with _WARM_LOCK:
+        runner = _WARM_STEPS.get(key)
+        if runner is None:
+            runner = _WARM_STEPS[key] = BlockRunner(config, params, batch_blocks, device)
+    return runner
 
 
 def warm_compile_step(config: PipelineConfig, params: Params, *,
                       batch_blocks=1, raw_dtype=np.float32,
                       max_control_latency_s: float = 0.25, device="cuda") -> None:
-    """Build AND warm the Step a future Session(config, params,
-    batch_blocks, device) will use, so that session's first block pays no
-    kernel build, FFT plan or first allocation. Blocking (returns once the
-    device has finished); call from a background thread to overlap with a
-    live session: the dummy blocks run on a state of their own, and a Step
-    keeps no per-call scratch that two threads share. raw_dtype must match
-    the source's block dtype (Source.block_dtype()) so the warmed path
-    (decode, or K2 on uint8/int8) is the one used. batch_blocks may be
+    """Build AND warm the BlockRunner a future Session(config, params,
+    batch_blocks, device) will use, so that session's first batch pays no
+    kernel build, FFT plan, first allocation or graph capture: one batch of
+    zero blocks on a state of its own. Blocking (returns once the device has
+    finished); call from a background thread to overlap with a live session.
+    A runner another session holds right now is warm already and is left
+    alone. raw_dtype must match the source's block dtype
+    (Source.block_dtype()): the runner captures one graph per raw dtype, and
+    uint8/int8 blocks take K2 under resampler="fused". batch_blocks may be
     "auto" (resolved like Session's)."""
     dev = resolve_device(device)
     batch_blocks = resolve_batch_blocks(config, batch_blocks, max_control_latency_s, dev)
-    key = (config, params, int(batch_blocks), dev)
-    with _WARM_LOCK:
-        step = _WARM_STEPS.get(key)
-        if step is None:
-            step = _WARM_STEPS[key] = make_step(config, params, dev)
+    runner = _runner_for(config, params, batch_blocks, dev)
     state = init_state(config, params.fir_lowpass_taps, dev)
-    raws = _upload(np.zeros((batch_blocks, 2 * config.block_samples), raw_dtype), dev)
-    state, _ = _step_blocks(step, state, raws, [0] * batch_blocks, 0, 0.0)
-    # the branches a block of zeros does not take: an estimation round, an emit
-    step.warm(state)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    if not runner.lease():
+        return
+    try:
+        runner.run(state, np.zeros((batch_blocks, 2 * config.block_samples), raw_dtype),
+                   host_controls([0] * batch_blocks, 0, 0.0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    finally:
+        runner.release(state)
 
 
 def _normalize_host(raw: np.ndarray) -> np.ndarray:
@@ -148,8 +146,8 @@ class Session:
                  callbacks: SessionCallbacks | None = None, batch_blocks: int | str = 1,
                  max_control_latency_s: float = 0.25, device="cuda"):
         """batch_blocks > 1 runs that many blocks per dispatch — one stacked
-        upload, the steps back to back, then the fetches — at the cost of
-        batch_blocks x block latency for interactive controls.
+        upload, one graph replay on the card, then the fetches — at the cost
+        of batch_blocks x block latency for interactive controls.
 
         batch_blocks="auto" sizes the batch from the device's measured
         per-dispatch floor vs the block's real-time duration so a live
@@ -166,6 +164,7 @@ class Session:
         self.batch_blocks = resolve_batch_blocks(config, batch_blocks,
                                                  max_control_latency_s, self.device)
         self._pending_params: Optional[Params] = None
+        self._holding = False
         self._build_steps(params)
         self.state: StreamState = init_state(config, params.fir_lowpass_taps, self.device)
         self._pending_sync = 0
@@ -184,10 +183,23 @@ class Session:
         self.meter = IngestMeter()
 
     def _build_steps(self, params: Params) -> None:
-        key = (self.config, params, self.batch_blocks, self.device)
-        with _WARM_LOCK:
-            step = _WARM_STEPS.get(key)  # warm_compile_step ran for this key
-        self._step = step if step is not None else make_step(self.config, params, self.device)
+        self._runner = _runner_for(self.config, params, self.batch_blocks, self.device)
+        self._step = self._runner.step  # the device step, for one block by hand
+
+    def _hold_runner(self) -> None:
+        """Hold the runner's graph state for a run; a runner another session
+        holds is replaced by a private one of the same key."""
+        if not self._runner.lease():
+            self._runner = BlockRunner(self.config, self.params, self.batch_blocks, self.device)
+            self._step = self._runner.step
+            self._runner.lease()
+        self._holding = True
+
+    def _let_go_runner(self) -> None:
+        """End of a run: the state back in tensors of the session's own."""
+        if self._holding:
+            self.state = self._runner.release(self.state)
+            self._holding = False
 
     def set_params(self, new_params: Params) -> None:
         """Live param-flag change (the reference toggles params_int while
@@ -204,9 +216,13 @@ class Session:
         if new is None or new == self.params:
             return
         flip_lowpass = new.lowpass_before_sync != self.params.lowpass_before_sync
+        holding = self._holding
+        self._let_go_runner()
         old_state = self.state
         self.params = new
         self._build_steps(new)
+        if holding:
+            self._hold_runner()
         fresh = init_state(self.config, new.fir_lowpass_taps, self.device)
         if state_compatible(old_state, fresh):
             self.state = old_state
@@ -264,10 +280,9 @@ class Session:
         analysis windows (an extra of this package). Returns False if no
         estimation round has completed yet.
 
-        Safe from any thread: the loop replaces self.state between blocks
-        and writes only the ring (ac_buf) in place; ac_calls and
-        ac_last_full are fresh tensors each round, so both are read from ONE
-        reference to the state and belong to the same round."""
+        Safe from any thread: ac_calls and ac_last_full are read in ONE copy
+        from one reference to the state, queued behind the batches already
+        launched, so both belong to the same round."""
         if windows:
             if not self._last_plots:
                 return False
@@ -281,8 +296,9 @@ class Session:
             self._emit_value(ValueEvent(VALUE_ID.AUTOCORRECT_DUMPED, 0, 0))
             return True
         st = self.state
-        calls = int(st.ac_calls)
-        r = st.ac_last_full.cpu().numpy()
+        both = torch.cat([st.ac_calls.to(torch.float64).reshape(1),
+                          st.ac_last_full.to(torch.float64)]).cpu().numpy()
+        calls, r = int(both[0]), both[1:]
         if calls == 0:
             return False
         sr = self.config.samplerate
@@ -381,19 +397,36 @@ class Session:
             self._apply_refresh_nudge()
 
     def _dispatch_blocks(self, raws: np.ndarray, dropped) -> int:
-        """One dispatch: upload the stacked blocks, run their steps (the
-        pending sync shift on slot 0 only), then fan each block's outputs
-        out in stream order. Returns the frames emitted."""
+        """One dispatch: the runner's K blocks (each block's drop count in
+        its own slot, the pending sync shift in slot 0 only), then ONE
+        packed fetch, the valid frames in one download, the completed
+        rounds' plots in another, and each block's callbacks in stream
+        order. Returns the frames emitted."""
         sync = self._pending_sync
         self._pending_sync = 0
-        self.state, per_block = _step_blocks(
-            self._step, self.state, _upload(raws, self.device), dropped, sync, self._motionblur)
-        frames = 0
-        for out, host in per_block:
-            got = self._dispatch(out, host)
-            frames += got
+        self.state, out, packed = self._runner.run(
+            self.state, raws, host_controls(dropped, sync, self._motionblur))
+        rows = packed.tolist()  # the one fetch of the batch
+        kf = self.config.frames_per_block
+        first_flag = len(PACKED)
+        slots = [(b, j) for b, row in enumerate(rows) for j in range(kf) if row[first_flag + j]]
+        frames = _download(out.frame.reshape(-1, self.config.height, self.config.width),
+                           [b * kf + j for b, j in slots])
+        rounds = [b for b, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
+        plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1), rounds) \
+            if rounds else []
+        fw = out.ac_frame_plot.shape[1]
+        got_frames = iter(frames)
+        got_plots = iter(plots)
+        total = 0
+        for b, row in enumerate(rows):
+            mine = [next(got_frames) for bj in slots if bj[0] == b]
+            plot = next(got_plots) if b in rounds else None
+            got = self._dispatch(dict(zip(PACKED, row)), mine,
+                                 None if plot is None else (plot[:fw], plot[fw:]))
+            total += got
             self.meter.update(self.config.block_samples, got)
-        return frames
+        return total
 
     def run(self, max_blocks: Optional[int] = None, max_frames: Optional[int] = None):
         """Synchronous loop (blocking like tsdr_readasync, TSDRLibrary.c:515).
@@ -409,6 +442,7 @@ class Session:
         pending_raws: list = []
         pending_dropped: list = []
         try:
+            self._hold_runner()
             for blk in self.source.stream(self.config.block_samples):
                 if not self._running:
                     break
@@ -436,6 +470,7 @@ class Session:
             else:
                 raise
         finally:
+            self._let_go_runner()
             self._running = False
             self.source.stop()
             if self.callbacks.on_stopped:
@@ -469,6 +504,7 @@ class Session:
         n = self.config.block_samples
         carry = np.empty(0, np.complex64)
         try:
+            self._hold_runner()
             # hop gathering happens at the source's native block size
             for blk in self.source.stream(n):
                 if not self._running:
@@ -495,6 +531,7 @@ class Session:
                     if max_frames is not None and frames >= max_frames:
                         self._running = False
         finally:
+            self._let_go_runner()
             self._running = False
             self.source.stop()
             if self.callbacks.on_stopped:
@@ -528,48 +565,50 @@ class Session:
         if self.callbacks.on_value:
             self.callbacks.on_value(ev)
 
-    def _dispatch(self, out, host) -> int:
-        """One block's StepOutputs and StepHost -> the reference's callback
-        streams; returns the number of frames emitted."""
-        slots = [i for i, ok in enumerate(host.frame_valid) if ok]
-        if not slots and not host.round_done:
-            return 0
-        rr, ag_min, ag_max, ag_snr, ac_calls = torch.stack([
-            out.refreshrate.to(torch.float64), out.ag_min.to(torch.float64),
-            out.ag_max.to(torch.float64), out.ag_snr.to(torch.float64),
-            out.ac_calls.to(torch.float64),
-        ]).tolist()
-        if slots:
-            stack = out.frame.unsqueeze(0) if out.frame.dim() == 2 else out.frame[slots]
-            emitted = list(stack.cpu().numpy())
+    def _dispatch(self, vals: dict, frames: list, plots) -> int:
+        """One block's fetched values, downloaded frames and plots (frame
+        window, line window; None without a completed round) -> the
+        reference's callback streams; returns the number of frames."""
+        if frames:
+            rr = vals["refreshrate"]
             changed = rr != self._last_refresh
             self._last_refresh = rr
             if self.params.framerate_pll and changed:
                 self._emit_value(ValueEvent(VALUE_ID.PLL_FRAMERATE, rr, 0))
-        else:
-            emitted = []
-        for fr in emitted:
+        for fr in frames:
             if self.callbacks.on_frame:
                 self.callbacks.on_frame(fr)
             # reference cadence quirk (dsp.c:231-235 `runs++ > 5`): first
             # report on frame 7, then every 7 frames
             if self._agruns > AUTOGAIN_REPORT_EVERY_FRAMES:
                 self._agruns = 0
-                self._emit_value(ValueEvent(VALUE_ID.AUTOGAIN_VALUES, ag_min, ag_max))
-                self._emit_value(ValueEvent(VALUE_ID.SNR, ag_snr, 0))
+                self._emit_value(ValueEvent(VALUE_ID.AUTOGAIN_VALUES, vals["ag_min"],
+                                            vals["ag_max"]))
+                self._emit_value(ValueEvent(VALUE_ID.SNR, vals["ag_snr"], 0))
             else:
                 self._agruns += 1
-        if host.round_done:
+        if plots is not None:
             sr = self.config.samplerate
             f_off, _ = self.config.ac_frame_window
             l_off, _ = self.config.ac_line_window
-            plots = [
-                PlotEvent(PLOT_ID.FRAME, f_off, out.ac_frame_plot.cpu().numpy(), sr),
-                PlotEvent(PLOT_ID.LINE, l_off, out.ac_line_plot.cpu().numpy(), sr),
-            ]
+            plots = [PlotEvent(PLOT_ID.FRAME, f_off, plots[0], sr),
+                     PlotEvent(PLOT_ID.LINE, l_off, plots[1], sr)]
             self._last_plots = plots
             if self.callbacks.on_plot:
                 for p in plots:
                     self.callbacks.on_plot(p)
-            self._emit_value(ValueEvent(VALUE_ID.AUTOCORRECT_FRAMES_COUNT, 0, int(ac_calls)))
-        return len(emitted)
+            self._emit_value(ValueEvent(VALUE_ID.AUTOCORRECT_FRAMES_COUNT, 0,
+                                        int(vals["ac_calls"])))
+        return len(frames)
+
+
+def _download(stack: torch.Tensor, rows: list) -> list:
+    """Rows of a stacked tensor as numpy arrays, in one copy to the host: a
+    run of consecutive rows as a slice, others gathered first."""
+    if not rows:
+        return []
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        picked = stack[rows[0]:rows[0] + len(rows)]
+    else:
+        picked = stack[rows]
+    return list(picked.cpu().numpy())

@@ -5,7 +5,8 @@ The reference's only instrumentation is a GUI FPS overlay
   - profile_trace: context manager around torch.profiler that writes a
     Chrome trace of the run (host calls, and kernels and copies on a card);
   - measure_dispatch_floor / auto_batch_blocks: the per-dispatch cost of the
-    device and the session batch size it asks for;
+    device and the session batch size it asks for; measure_replay_floor, a
+    one-block batch of the session's own (a graph replay and its fetch);
   - IngestMeter: samples/s + frames/s rates with exponential smoothing, fed
     by the session loop or any block consumer.
 """
@@ -16,6 +17,7 @@ import contextlib
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -62,6 +64,33 @@ def measure_dispatch_floor(repeats: int = 3, *, device="cuda") -> float:
         x.item()
         best = min(best, time.monotonic() - t0)
     _FLOOR_CACHE[key] = best
+    return best
+
+
+def measure_replay_floor(config, params=None, repeats: int = 3, *, device="cuda") -> float:
+    """Seconds of the least batch a session dispatches: one block of zeros
+    (uint8) copied up, one replay of a one-block CUDA graph of the device
+    step (stream/graph.py; on "cpu" one eager step) and the batch's packed
+    fetch, on a runner of its own. The step's whole per-block cost at
+    batch_blocks=1, beside measure_dispatch_floor's bare round trip.
+    Minimum of `repeats` after one untimed call (which captures)."""
+    from ..params import Params
+    from ..stream.graph import BlockRunner, host_controls
+    from ..stream.state import init_state
+
+    dev = resolve_device(device)
+    params = params or Params()
+    runner = BlockRunner(config, params, 1, dev)
+    state = init_state(config, params.fir_lowpass_taps, dev)
+    raws = np.zeros((1, 2 * config.block_samples), np.uint8)
+    ctl = host_controls([0], 0, 0.0)
+    best = float("inf")
+    for i in range(max(repeats, 1) + 1):
+        t0 = time.monotonic()
+        state, _, packed = runner.run(state, raws, ctl)
+        packed.tolist()
+        if i:
+            best = min(best, time.monotonic() - t0)
     return best
 
 

@@ -181,7 +181,7 @@ def test_warm_resolution_background_is_reused():
     rx.set_resolution(LINES + 14, REFRESH)
     rx.start(on_frame=frames.append, max_frames=2)
     key = (rx.session.config, rx.session.params, 1, torch.device("cpu"))
-    assert rx.session._step is tsession._WARM_STEPS[key]
+    assert rx.session._runner is tsession._WARM_STEPS[key]
     assert len(frames) == 2 and frames[0].shape[0] == LINES + 14
     rx.close()
 

@@ -330,8 +330,8 @@ def test_start_async_stop_and_already_running():
 
 
 def test_warm_compile_step_is_reused_by_session():
-    """warm_compile_step caches the Step under (config, params, batch,
-    device); a later Session with that key reuses the object, as the JAX
+    """warm_compile_step caches the BlockRunner under (config, params,
+    batch, device); a later Session with that key reuses the object, as the JAX
     Session reuses its warmed functions (tests/test_stream.py:376), and
     streams the frames of a session that was not warmed."""
     cfg = PipelineConfig(samplerate=SR, height=LINES + 2, refreshrate=REFRESH,
@@ -349,12 +349,12 @@ def test_warm_compile_step_is_reused_by_session():
     sess = tsession.Session(cfg, params, _synthetic("t"),
                             tsession.SessionCallbacks(on_frame=frames.append), batch_blocks=2,
                             device="cpu")
-    assert sess._step is warmed
+    assert sess._runner is warmed and sess._step is warmed.step
     assert sess.run(max_frames=3) >= 3
     for a, b in zip(frames, cold_frames):
         np.testing.assert_array_equal(a, b)
     # another batch size or device string is another key
-    assert tsession.Session(cfg, params, _synthetic("t"), device="cpu")._step is not warmed
+    assert tsession.Session(cfg, params, _synthetic("t"), device="cpu")._runner is not warmed
     # the JAX package's contract, on its own cache
     jcfg = JConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=BLOCK,
                    autocorr=False)
@@ -365,9 +365,8 @@ def test_warm_compile_step_is_reused_by_session():
 
 def test_warm_compile_step_on_a_thread_while_streaming():
     """The warm start of the very key a session streams with, from a second
-    thread: it steps the shared Step on a state of its own, and the
-    session's frames stay those of an undisturbed run (Step.last is per
-    thread)."""
+    thread: the runner the session holds is warm already and is left
+    alone, and the session's frames stay those of an undisturbed run."""
     cfg = PipelineConfig(samplerate=SR, height=LINES + 4, refreshrate=REFRESH,
                          block_samples=BLOCK)
     params = Params()
@@ -395,7 +394,7 @@ def test_warm_compile_step_on_a_thread_while_streaming():
     tsession.warm_compile_step(cfg, params, raw_dtype=np.float32, device="cpu")
     quiet, _ = run(False)
     loud, sess = run(True)
-    assert sess._step is tsession._WARM_STEPS[(cfg, params, 1, CPU)]
+    assert sess._runner is tsession._WARM_STEPS[(cfg, params, 1, CPU)]
     assert len(quiet) == len(loud) == 8
     for a, b in zip(quiet, loud):
         np.testing.assert_array_equal(a, b)
