@@ -34,7 +34,7 @@
    configurations, and profiles steady default blocks; then the graph
    step: the eager device step under set_sync_debug_mode("error") (no
    host read), the block runner at batch 1, 4 and 8 against the eager
-   device step (every output bit for bit) and the host-branching Step
+   device step (every output bit for bit) and the device step on the CPU
    (integers exact, frames within GRAPH_TOL), Session(batch_blocks=1, 4,
    8) at 64 MS/s (frames equal to the eager step's, one packed fetch a
    batch, K1 once a block), timed in turns, its busy share at batch 8, the
@@ -56,17 +56,24 @@
    first block in a fresh process cold and after warm_compile_step
    (`chip_smoke.py --first-block cold|warm`, which it starts itself);
 9. runs multi-target on the card at config 5's geometry (8 channels at
-   16 MS/s, block 786432, K == 4): MultiSession over 8 uint8 sources of
-   their own line widths (K1 8 times a block, frames and plots on every
-   channel, no two channels alike), the hybrid step's stacked demod against
-   per-channel demod (bit for bit), resampler="fused" (K2 8 times a block)
-   against the hybrid step with K1, the hybrid step (K1) against each
-   channel's single-channel step with the plain strided resampler, each with
-   a drop on one channel, the card's hybrid step against the CPU's at 8 MS/s with
-   3 channels, and a simlive source (native ring) through Session; prints
-   per-block ms, the aggregate MS/s against the 128 MS/s of real time, the
-   per-block split and the frame download's share, and the device busy
-   share under profile_trace;
+   16 MS/s, block 786432, K == 4), every channel step through a
+   ChannelRunner graph (one replay a block) unless said: the eager channel
+   step for one block under set_sync_debug_mode("error"); the graph's node
+   count, memory and device operations a replay, and the graph against the
+   eager step over 6 blocks (a drop on channel 1; every output bit for bit;
+   K1 8 times a block by profiler count); stacked demod against per-channel
+   demod (eager, bit for bit); the fused graph (K2 8 times a block) against
+   the K1 graph; the K1 graph against each channel's single-channel step
+   with the plain strided resampler, and at 8 MS/s with 3 channels against
+   the channel step on the CPU; cond_mode="batched" against "unrolled" at
+   the 64 MS/s geometry with 4 channels (and their node counts);
+   MultiSession over 8 uint8 sources of their own line widths for 12
+   blocks (frames and plots on every channel, no two channels alike, first
+   frames against their rasters; ms a block and the aggregate MS/s against
+   the 128 MS/s of real time beside PR 9's), then 4 blocks with K1 counted
+   (8 a block); its per-block host split of upload and replay, the packed
+   fetch and the downloads; its busy share under profile_trace; and a
+   simlive source (native ring) through Session;
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -136,10 +143,11 @@ from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq
 from tempestsdr_tpu_torch.stream import MultiSession  # noqa: E402
 from tempestsdr_tpu_torch.stream.pipeline import (  # noqa: E402
     StepControls,
+    channel_controls_on,
     make_channels_step_hybrid,
     make_step,
 )
-from tempestsdr_tpu_torch.stream import pipeline as pipeline_mod  # noqa: E402
+from tempestsdr_tpu_torch.stream import multisession as multisession_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream import session as session_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     Session,
@@ -147,7 +155,7 @@ from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     resolve_batch_blocks,
     warm_compile_step,
 )
-from tempestsdr_tpu_torch.stream.graph import BlockRunner  # noqa: E402
+from tempestsdr_tpu_torch.stream.graph import BlockRunner, ChannelRunner  # noqa: E402
 from tempestsdr_tpu_torch.stream.state import StepOutputs, init_state, state_leaves  # noqa: E402
 from tempestsdr_tpu_torch.utils.profiling import (  # noqa: E402
     measure_dispatch_floor,
@@ -1074,10 +1082,66 @@ def hold_channels(name, steps, cfg, n_ch, blocks, tol, drop_channel=1, drop=3777
     return worst
 
 
-def multisession_run(cfg, srcs, n_blocks):
-    """One MultiSession.run over n_blocks on the card after a warm-up run
-    (a frame and a round on every channel). Counts are zeroed just before
-    the timed run and read just after."""
+class RunnerStep:
+    """A ChannelRunner called as a channel step is (state, raws, controls)
+    -> (state, outputs), for hold_channels: the controls as its [C, 3]
+    buffer, the outputs cloned out of the graph's."""
+
+    def __init__(self, runner):
+        self.runner = runner
+
+    def __call__(self, state, raws, controls):
+        n = self.runner.n_blocks
+        ctl = np.stack([np.broadcast_to(np.asarray(v, np.float64), (n,)) for v in controls], 1)
+        state, out, _ = self.runner.run(state, raws, ctl)
+        return state, StepOutputs(*(x.clone() for x in out))
+
+
+def captured(runner, raws):
+    """The runner after its first call (the capture, and the eager warm-up
+    step before it, whose launches must not count) on a scratch state."""
+    runner.run(stack_states(runner.config, runner.n_blocks, device=DEV), raws,
+               np.zeros((runner.n_blocks, 3)))
+    torch.cuda.synchronize()
+    return runner
+
+
+def graph_nodes(runner, dtype=torch.uint8):
+    """The node count of a runner's captured graph (cuGraphGetNodes on the
+    kept cudaGraph_t)."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(runner._graphs[dtype].graph.raw_cuda_graph()), None, ctypes.byref(count))
+    assert rc == 0, f"cuGraphGetNodes returned {rc}"
+    return count.value
+
+
+def device_ops_per_replay(runner, raws, n=2):
+    """Device operations (kernels, copies, fills) a replay runs, counted in
+    a profiler trace over n replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = stack_states(runner.config, runner.n_blocks, device=DEV)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _, _ = runner.run(state, raws, np.zeros((runner.n_blocks, 3)))
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA") / n
+
+
+PR9_CONFIG5 = dict(per_block_ms=[151.3, 262.7], aggregate_msps=[41.6, 23.9])  # PERF.md, PR 9:
+# MultiSession through the host-branching hybrid step on an NVIDIA H100 80GB HBM3 at 700 W
+
+
+def multisession_run(cfg, srcs, n_blocks, smi):
+    """MultiSession.run over n_blocks on the card after a warm-up run (the
+    channel graph's capture; a frame and a round on every channel): once
+    timed, then over 4 blocks with its launches on the card counted by
+    kernel name (card_counts): K1 once per channel a block, from inside the
+    graph, and no other kernel."""
     MultiSession(cfg, Params(), srcs, device=DEV).run(max_blocks=2)
     n_ch = len(srcs)
     first, last, plots = {}, {c: [] for c in range(n_ch)}, [0] * n_ch
@@ -1092,13 +1156,10 @@ def multisession_run(cfg, srcs, n_blocks):
 
     ms = MultiSession(cfg, Params(), srcs, on_frame=on_frame, on_plot=on_plot, device=DEV)
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     total = ms.run(max_blocks=n_blocks)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = counts()
-    only(launches, box_resample_strided_cuda=n_ch * n_blocks)
     whole = int(n_blocks * cfg.block_samples // (cfg.frame_pixels * cfg.samples_per_pixel))
     assert total == sum(ms.frames_total) and min(ms.frames_total) >= whole, ms.frames_total
     assert min(plots) >= 1, plots
@@ -1112,11 +1173,15 @@ def multisession_run(cfg, srcs, n_blocks):
         for c2 in range(c):
             assert np.abs(f - last[c2][0]).max() > 0.05, f"channels {c2} and {c} alike"
     assert min(corr) > CORR_MIN, corr
-    return dict(blocks=n_blocks, frames=ms.frames_total, plots=plots, first_frame_corr=corr,
-                per_block_ms=dt / n_blocks * 1e3,
+    counted = MultiSession(cfg, Params(), srcs, device=DEV)
+    with card_counts() as launches:
+        counted.run(max_blocks=4)
+    only(launches, box_resample_strided_cuda=n_ch * 4)
+    return dict(card=smi, blocks=n_blocks, frames=ms.frames_total, plots=plots,
+                first_frame_corr=corr, per_block_ms=dt / n_blocks * 1e3,
                 aggregate_msps=n_ch * cfg.block_samples * n_blocks / dt / 1e6,
-                realtime_msps=n_ch * cfg.samplerate / 1e6,
-                k1_launches=launches["box_resample_strided_cuda"])
+                realtime_msps=n_ch * cfg.samplerate / 1e6, replaces_pr9=PR9_CONFIG5,
+                k1_launches_in_4_blocks=launches["box_resample_strided_cuda"])
 
 
 def _timed(owner, name, spent):
@@ -1135,53 +1200,43 @@ def _timed(owner, name, spent):
     return lambda: setattr(owner, name, orig)
 
 
-def channels_split(cfg, blocks, n_ch):
-    """The hybrid step block by block, as MultiSession drives it, with the
-    host clock read between the stacked upload, the step and the frame-stack
-    download, and inside the step around the channels' device parts, the
-    one fetch (.tolist(), which waits for the card), the host parts and the
-    restacking; then the download alone, on an idle card, of one
-    [C, K, H, W] stack into pageable memory."""
-    step = make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV)
-    state = stack_states(cfg, n_ch, device=DEV)
-    split = dict(upload=[], step=[], download=[], sync=[])
-    inside = {}
-    emitting = 0
-    for raws in blocks:
+def channels_split(cfg, srcs, n_blocks=8):
+    """MultiSession.run with the host clock read around the runner's run
+    (the stacked upload and the replay), the packed fetch (.tolist(), which
+    waits for the replay) and the frame and plot downloads, per block; then
+    one block's worth of valid frames downloaded alone, on an idle card,
+    into pageable memory."""
+    got = []
+    ms = MultiSession(cfg, Params(), srcs, on_frame=lambda c, f: got.append(1),
+                      on_plot=lambda c, ev: None, device=DEV)
+    spent = {}
+    undo = [_timed(ChannelRunner, "run", spent), _timed(torch.Tensor, "tolist", spent),
+            _timed(multisession_mod, "_download", spent)]
+    try:
         torch.cuda.synchronize()
-        undo = [_timed(step.step, "device_part", inside), _timed(step.step, "host_part", inside),
-                _timed(torch.Tensor, "tolist", inside), _timed(pipeline_mod, "_assemble", inside)]
         t0 = time.perf_counter()
-        raw = torch.from_numpy(np.ascontiguousarray(raws)).to(DEV)
-        t1 = time.perf_counter()
-        state, out = step(state, raw, StepControls())
-        t2 = time.perf_counter()
-        for u in undo:
-            u()
-        if any(any(h.frame_valid) for h in step.last):
-            out.frame.cpu().numpy()
-            emitting += 1
-        t3 = time.perf_counter()
+        ms.run(max_blocks=n_blocks)
         torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        for k, (a, b) in zip(split, ((t0, t1), (t1, t2), (t2, t3), (t3, t4))):
-            split[k].append((b - a) * 1e3)
+        dt = time.perf_counter() - t0
+    finally:
+        for u in undo[::-1]:
+            u()
+    names = {"run": "upload + replay", "tolist": "packed fetch (waits for the replay)",
+             "_download": "frame and plot downloads"}
+    split = {names[k]: v * 1e3 / n_blocks for k, v in spent.items()}
+    split["the rest (sources, stacking, callbacks)"] = dt * 1e3 / n_blocks - sum(split.values())
+    per_block = round(len(got) / n_blocks)
+    stack = torch.zeros((per_block, cfg.height, cfg.width), device=DEV)
     alone = []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out.frame.cpu().numpy()
+        stack.cpu().numpy()
         alone.append((time.perf_counter() - t0) * 1e3)
-    total = sum(sum(v) for v in split.values())
-    in_step = {("fetch" if k == "tolist" else k): v * 1e3 / len(blocks) for k, v in inside.items()}
-    in_step["the rest (controls, views, ring write)"] = (
-        float(np.mean(split["step"])) - sum(in_step.values()))
-    return dict(blocks=len(blocks), emitting_blocks=emitting,
-                ms_per_block={k: float(np.mean(v)) for k, v in split.items()},
-                step_ms_per_block=in_step,
-                frame_stack_bytes=out.frame.numel() * 4,
+    return dict(blocks=n_blocks, ms_per_block=dt * 1e3 / n_blocks, split_ms_per_block=split,
+                frames_per_block=len(got) / n_blocks, frames_bytes_per_block=stack.numel() * 4,
                 download_alone_ms=alone, download_alone_ms_median=float(np.median(alone)),
-                download_share=float(np.median(alone)) * emitting / total)
+                download_share=float(np.median(alone)) / (dt * 1e3 / n_blocks))
 
 
 def profile_channels(cfg, srcs, n_blocks=4):
@@ -1229,59 +1284,126 @@ def simlive_session(cfg, n_blocks=8):
                 per_block_ms=dt / n_blocks * 1e3)
 
 
-def channels_phase(cfg=CH5, n_ch=N_CH, n_blocks=12):
-    """Phase 9: multi-target on the card at config 5's geometry. Returns the
-    K1 and K2 launch counts of its two channel paths."""
+def channels_phase(smi, cfg=CH5, n_ch=N_CH, n_blocks=12):
+    """Phase 9: multi-target on the card at config 5's geometry, every
+    channel step through a ChannelRunner graph (one replay a block) unless
+    said. Returns K1's and K2's launches on the card (profiler count) on
+    its two channel paths."""
     srcs = channel_sources(cfg, n_ch, n_blocks)
     blocks = channel_blocks(srcs)
-    row = multisession_run(cfg, srcs, n_blocks)
-    print("channels MultiSession " + json.dumps(row))
+    raws = [torch.from_numpy(b).to(DEV) for b in blocks]
+
+    def ctl_of(b, drop=37777):  # channel 1 drops before block 1
+        ctl = np.zeros((n_ch, 3))
+        ctl[1, 0] = drop if b == 1 else 0
+        return ctl
+
+    # the eager channel step reads nothing to the host: one block (a drop
+    # on channel 1) under set_sync_debug_mode("error"), after a warm-up
+    eager = make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV)
+    state = stack_states(cfg, n_ch, device=DEV)
+    state, _ = eager(state, raws[0], StepControls())  # cuFFT plans, library load
+    ctl = channel_controls_on(StepControls(*ctl_of(1).T), n_ch, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, _ = eager(state, raws[1], ctl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("channels: the eager channel step ran a block (a drop on channel 1) under "
+          "set_sync_debug_mode('error') with no synchronizing call")
+
+    # the graph: its capture's memory and nodes, then 6 blocks counted on
+    # the card and held bit for bit against the eager step's
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    runner = captured(ChannelRunner(cfg, Params(), n_ch, DEV), raws[0])
+    graph = dict(nodes=graph_nodes(runner),
+                 allocated_bytes=torch.cuda.memory_allocated(DEV) - mem0,
+                 peak_bytes_during_capture=torch.cuda.max_memory_allocated(DEV) - mem0,
+                 device_ops_per_replay=device_ops_per_replay(runner, raws[0]))
+    got = []
+    with card_counts() as launches:
+        state = stack_states(cfg, n_ch, device=DEV)
+        for b in range(6):
+            state, out, _ = runner.run(state, raws[b], ctl_of(b))
+            got.append(StepOutputs(*(x.clone() for x in out)))
+    only(launches, box_resample_strided_cuda=6 * n_ch)
+    state_e = stack_states(cfg, n_ch, device=DEV)
+    for b in range(6):
+        state_e, want = eager(state_e, raws[b], StepControls(*ctl_of(b).T))
+        same_outputs(got[b], want, f"channel graph block {b}")
+    assert all(torch.equal(a, e) for a, e in zip(state_leaves(state), state_leaves(state_e)))
+    assert int(sum(o.frame_valid.sum() for o in got)) >= 6 * n_ch
+    graph["k1_launches_in_6_blocks"] = launches["box_resample_strided_cuda"]
+    print("channel graph (8x16MS/s, one replay a block; equal bit for bit to the eager step "
+          "over 6 blocks, a drop on channel 1) " + json.dumps(graph))
+    del eager, state_e
 
     # stacked demod against per-channel demod, bit for bit
     steps = {m: make_channels_step_hybrid(cfg, Params(), n_ch, demod_mode=m, device=DEV)
              for m in ("per-channel", "stacked")}
     states = {m: stack_states(cfg, n_ch, device=DEV) for m in steps}
-    for raws in blocks[:4]:
+    for raw in raws[:4]:
         outs = {}
         for m, step in steps.items():
-            states[m], outs[m] = step(states[m], torch.from_numpy(raws).to(DEV), StepControls())
+            states[m], outs[m] = step(states[m], raw, StepControls())
         assert all(torch.equal(a, b) for a, b in zip(outs["per-channel"], outs["stacked"])), \
             "stacked demod differs from per-channel demod"
     assert all(torch.equal(a, b) for a, b in zip(*(state_leaves(s) for s in states.values())))
     del steps, states, outs
 
-    # resampler="fused": K2 once per channel per block, held against the
-    # hybrid step with K1 (once per channel per block) on the same blocks
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    worst_fused = hold_channels(
-        "fused hybrid (K2) vs hybrid (K1)",
-        [(make_channels_step_hybrid(cfg, Params(resampler=r), n_ch, device=DEV), DEV)
-         for r in ("fused", "auto")], cfg, n_ch, blocks[:4], CHANNEL_TOL)
-    torch.cuda.synchronize()
-    k2 = counts()
+    # resampler="fused": K2 once per channel a block from inside its graph,
+    # held against the K1 graph (once per channel a block) on the same blocks
+    fused = captured(ChannelRunner(cfg, Params(resampler="fused"), n_ch, DEV), raws[0])
+    with card_counts() as k2:
+        worst_fused = hold_channels("fused graph (K2) vs K1 graph",
+                                    [(RunnerStep(fused), DEV), (RunnerStep(runner), DEV)],
+                                    cfg, n_ch, blocks[:4], CHANNEL_TOL)
     only(k2, fused_demod_resample_cuda=n_ch * 4, box_resample_strided_cuda=n_ch * 4)
+    del fused
 
     worst = hold_channels(
-        "hybrid (K1) vs per-channel steps (plain strided)",
-        [(make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV), DEV),
-         (PlainPerChannel(cfg, n_ch, DEV), DEV)], cfg, n_ch, blocks[:3], CHANNEL_TOL)
+        "K1 graph vs per-channel steps (plain strided)",
+        [(RunnerStep(runner), DEV), (PlainPerChannel(cfg, n_ch, DEV), DEV)], cfg, n_ch,
+        blocks[:3], CHANNEL_TOL)
     g8 = GEOMETRIES["8MS/s"]
     worst_cpu = hold_channels(
-        "hybrid on the card vs on the CPU (8MS/s, C=3)",
-        [(make_channels_step_hybrid(g8, Params(), 3, device=d), d) for d in (DEV, "cpu")],
+        "channel graph on the card vs the channel step on the CPU (8MS/s, C=3)",
+        [(RunnerStep(ChannelRunner(g8, Params(), 3, DEV)), DEV),
+         (make_channels_step_hybrid(g8, Params(), 3, device="cpu"), "cpu")],
         g8, 3, channel_blocks(channel_sources(g8, 3, 3)), CHANNEL_TOL)
+
+    # cond_mode="batched" (the bodies once over the channels) against
+    # "unrolled" at the 64 MS/s geometry (one frame a block), C = 4
+    g64 = GEOMETRIES["64MS/s"]
+    b64 = channel_blocks(channel_sources(g64, 4, 6))
+    modes = {m: ChannelRunner(g64, Params(), 4, DEV, cond_mode=m) for m in ("batched", "unrolled")}
+    worst_modes = hold_channels("batched vs unrolled (64MS/s, C=4)",
+                                [(RunnerStep(r), DEV) for r in modes.values()], g64, 4, b64,
+                                CHANNEL_TOL)
+    b64_0 = torch.from_numpy(b64[0]).to(DEV)
+    mode_ops = {m: dict(nodes=graph_nodes(r), device_ops_per_replay=device_ops_per_replay(r, b64_0))
+                for m, r in modes.items()}
+    assert mode_ops["batched"]["nodes"] < mode_ops["unrolled"]["nodes"], mode_ops
+    del modes
     print("channels held: " + json.dumps(dict(
-        stacked_demod_bit_identical=True, fused_k2_launches=k2["fused_demod_resample_cuda"],
-        fused_vs_k1_max_abs=worst_fused, hybrid_vs_plain_max_abs=worst,
-        card_vs_cpu_max_abs=worst_cpu)))
-    split = channels_split(cfg, blocks[:8], n_ch)
-    print("channels split " + json.dumps(split))
+        stacked_demod_bit_identical=True, fused_k2_launches_in_4_blocks=k2[
+            "fused_demod_resample_cuda"], fused_vs_k1_max_abs=worst_fused,
+        graph_vs_plain_max_abs=worst, card_vs_cpu_max_abs=worst_cpu,
+        batched_vs_unrolled_64MS_C4_max_abs=worst_modes, batched_vs_unrolled_ops=mode_ops)))
+    del runner
+
+    row = multisession_run(cfg, srcs, n_blocks, smi)
+    print("channels MultiSession " + json.dumps(row))
+    print("channels split " + json.dumps(channels_split(cfg, srcs)))
     print("profile(8x16MS/s MultiSession, under the profiler) "
           + json.dumps(profile_channels(cfg, srcs)))
     print("simlive Session (8MS/s, native ring) "
           + json.dumps(simlive_session(GEOMETRIES["8MS/s"])))
-    return {"K1": row["k1_launches"], "K2": k2["fused_demod_resample_cuda"]}
+    return {"K1": row["k1_launches_in_4_blocks"], "K2": k2["fused_demod_resample_cuda"]}
 
 
 # ---- phase 10: the sharded receiver over torch.distributed ----------------
@@ -1620,10 +1742,9 @@ KERNEL_NAMES = {  # wrapper -> its CUDA kernel's name in a profiler trace
     "box_resample_pallas_windows_cuda": "windows_resample_kernel",
     "gather_windows": "gather_windows_kernel",
 }
-GRAPH_TOL = 1e-4  # the device step against the host-branching Step on the card,
-# frames max abs diff: the same kernels, but a select (torch.where over the
-# post-process's outputs) where the host step branches, and the autoshift
-# roll as two gathers; STEP_TOL["default"]'s class
+GRAPH_TOL = 1e-4  # the card's device step and graphs against the CPU's device step,
+# frames max abs diff: STEP_TOL["default"] (K1 against its plain version,
+# scaled by autogain)
 
 
 @contextlib.contextmanager
@@ -1637,8 +1758,12 @@ def card_counts():
     got = {}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the trace keeps only device events it times inside its window, so
+        # the counted work starts and ends well inside it
+        time.sleep(0.05)
         yield got
         torch.cuda.synchronize()
+        time.sleep(0.05)
     seen = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"]
     for wrapper, name in KERNEL_NAMES.items():
         got[wrapper] = sum(c for k, c in seen if name in k)
@@ -1675,12 +1800,19 @@ def same_outputs(got, want, what):
         assert a.dtype == b.dtype and torch.equal(a, b), (what, name)
 
 
-def held_to_host_step(got, want, what):
+def cpu_outputs(cfg, raws, controls):
+    """The device step on the CPU over the same blocks (the plain versions
+    of the kernels), stacked as eager_outputs stacks them."""
+    return eager_outputs(make_step(cfg, Params(), device="cpu"), init_state(cfg, device="cpu"),
+                         [r.cpu() for r in raws], controls)
+
+
+def held_to_cpu(got, want, what):
     """Integer outputs equal, frames within GRAPH_TOL; returns the worst
     frame difference."""
     for f in CHANNEL_INTS:
-        assert torch.equal(getattr(got, f), getattr(want, f)), (what, f)
-    err = (got.frame - want.frame).abs().max().item()
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (what, f)
+    err = (got.frame.cpu() - want.frame).abs().max().item()
     assert err <= GRAPH_TOL, (what, err)
     return err
 
@@ -1720,8 +1852,8 @@ def graph_step_phase(cfg, smi, n_blocks=24):
     """The device step and its graph runner on the card, at 64 MS/s with
     default Params unless said: the eager device step under
     set_sync_debug_mode("error"); the runner at batch 1, 4 and 8 against
-    the eager device step (every output bit for bit) and the host-branching
-    Step (integers exact, frames within GRAPH_TOL); Session(batch_blocks=K)
+    the eager device step (every output bit for bit) and the device step on
+    the CPU (integers exact, frames within GRAPH_TOL); Session(batch_blocks=K)
     for K in 1, 4, 8 (frames equal to the eager step's, one packed fetch a
     batch, K1 once a block by profiler count), timed in turns; the busy
     share at batch 8 under profile_trace; the one-block replay floor; the
@@ -1748,16 +1880,15 @@ def graph_step_phase(cfg, smi, n_blocks=24):
           "with no synchronizing call")
 
     eager = eager_outputs(step, init_state(cfg, device=DEV), raws, zero)
-    host = eager_outputs(pipeline_mod.Step(cfg, Params(), DEV), init_state(cfg, device=DEV),
-                         raws, zero)
-    worst = held_to_host_step(eager, host, "eager device step")
+    cpu = cpu_outputs(cfg, raws, zero)
+    worst = held_to_cpu(eager, cpu, "eager device step")
     frames_eager = [eager.frame[b].cpu().numpy() for b in range(n_blocks) if eager.frame_valid[b]]
     by_path = {}
     rows = {}
     for k in (1, 4, 8):
         got, launches = batches_of(BlockRunner(cfg, Params(), k, DEV), raws, zero, k)
         same_outputs(got, eager, f"runner batch {k}")
-        worst = max(worst, held_to_host_step(got, host, f"runner batch {k}"))
+        worst = max(worst, held_to_cpu(got, cpu, f"runner batch {k}"))
         only(launches, box_resample_strided_cuda=n_blocks)
         frames, _, fetches, launches = graph_session(cfg, Params(), blocks, k, count=True)
         only(launches, box_resample_strided_cuda=n_blocks)
@@ -1805,7 +1936,7 @@ def graph_step_phase(cfg, smi, n_blocks=24):
           "split at 1 and 8) "
           + json.dumps(dict(card=smi, blocks=n_blocks, timing=timing,
                             busy_under_profile_trace_batch8=busy, floors=floors,
-                            worst_frame_diff_vs_host_step=worst)))
+                            worst_frame_diff_vs_cpu=worst)))
 
     k2 = {}
     for resampler, names in (("fused", ("fused_demod_resample_cuda",)),
@@ -1828,18 +1959,17 @@ def graph_step_phase(cfg, smi, n_blocks=24):
     ctl8 = [(0, 1234, 0.3), (0, 0, 0.3), (37777, 0, 0.3)] + [(0, 0, 0.3)] * 5
     want = eager_outputs(make_step(g8, Params(), device=DEV), init_state(g8, device=DEV),
                          blocks8, ctl8)
-    host8 = eager_outputs(pipeline_mod.Step(g8, Params(), DEV), init_state(g8, device=DEV),
-                          blocks8, ctl8)
+    cpu8 = cpu_outputs(g8, blocks8, ctl8)
     got, launches = batches_of(BlockRunner(g8, Params(), 4, DEV), blocks8,
                                np.array(ctl8, np.float64), 4)
     same_outputs(got, want, "runner batch 4 8MS/s")
-    err8 = held_to_host_step(got, host8, "runner batch 4 8MS/s")
+    err8 = held_to_cpu(got, cpu8, "runner batch 4 8MS/s")
     only(launches, box_resample_strided_cuda=8)
     assert int(got.frame_valid.sum()) > 8 and int(got.n_pixels[2]) < int(got.n_pixels[1])
     print("graph step (fused/pallas/pallas_windows at batch 4, 8 blocks; 8MS/s K == 4 at "
           "batch 4 with a drop in slot 2 and a sync shift in slot 0) " + json.dumps(dict(
               card=smi, launches=k2, frames_8MS=int(got.frame_valid.sum()),
-              worst_frame_diff_vs_host_step_8MS=err8)))
+              worst_frame_diff_vs_cpu_8MS=err8)))
     return by_path, {"graph runner batch 4 fused 64MS/s, 8 blocks": k2["fused"]}
 
 
@@ -1917,7 +2047,7 @@ def main():
         live_controls(g64, tmp)
     assert superresolution(g64) == 1 << 21  # 2^23 stitched samples a cycle
     numbers_worth_a_line(build_s)
-    channel_launches = channels_phase()
+    channel_launches = channels_phase(smi)
     sharded_launches, range_row = sharded_phase(smi)
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
@@ -1934,8 +2064,8 @@ def main():
             kern[-1]["launches_by_path"] = {
                 ("default Session 64MS/s" if kid == "K1" else "fused Session 64MS/s"):
                     launches[kid],
-                ("MultiSession 8x16MS/s, 12 blocks" if kid == "K1"
-                 else "fused hybrid channels step 8x16MS/s, 4 blocks"): channel_launches[kid]}
+                ("MultiSession 8x16MS/s graph, 4 blocks" if kid == "K1"
+                 else "fused channel graph 8x16MS/s, 4 blocks"): channel_launches[kid]}
             kern[-1]["launches_by_path"].update(graph_launches if kid == "K1" else graph_k2)
         if kid == "K1":
             kern[-1]["launches_by_path"].update(sharded_launches)

@@ -13,7 +13,8 @@ import torch
 
 
 def autocorrelation_magnitude(x: torch.Tensor) -> torch.Tensor:
-    """x: f32[n] (n a power of two) -> |R(j)| f32[n]."""
+    """x: f32[..., n] (n a power of two) -> |R(j)| f32[..., n], one FFT
+    plan over the leading axes."""
     spec = torch.fft.fft(x.to(torch.complex64))
     r = torch.fft.ifft(spec.abs().to(torch.complex64))
     return r.abs().to(torch.float32)
@@ -21,7 +22,8 @@ def autocorrelation_magnitude(x: torch.Tensor) -> torch.Tensor:
 
 def accumulate_running_mean(avg: torch.Tensor, new: torch.Tensor, calls) -> torch.Tensor:
     """Running average across estimation rounds (frameratedetector.c:44-61):
-    calls == 0 overwrites, else avg' = (avg*(calls-1) + new)/calls (f32)."""
-    calls = torch.as_tensor(calls, dtype=torch.float32, device=avg.device)
+    calls == 0 overwrites, else avg' = (avg*(calls-1) + new)/calls (f32).
+    avg and new [..., L], calls a number or [...]."""
+    calls = torch.as_tensor(calls, dtype=torch.float32, device=avg.device)[..., None]
     blended = (avg * (calls - 1.0) + new) / torch.clamp(calls, min=1.0)
     return torch.where(calls == 0, new, blended).to(torch.float32)

@@ -23,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .gaussian import gaussian_blur_circular
 
 FRAMERATE_DX_LOWPASS_COEFF_HEIGHT = 0.1  # syncdetector.c:15
@@ -40,7 +41,8 @@ class SweetspotState(NamedTuple):
     vx: torch.Tensor
 
     @staticmethod
-    def init(device="cpu") -> "SweetspotState":
+    def init(device="cuda") -> "SweetspotState":
+        device = resolve_device(device)
         return SweetspotState(*(torch.zeros((), dtype=torch.int32, device=device)
                                 for _ in range(3)))
 
@@ -53,7 +55,8 @@ class PLLState(NamedTuple):
     refresh_delta: torch.Tensor  # f32 — offset vs nominal refreshrate
 
     @staticmethod
-    def init(device="cpu") -> "PLLState":
+    def init(device="cuda") -> "PLLState":
+        device = resolve_device(device)
         return PLLState(
             torch.zeros((), dtype=torch.float64, device=device),
             torch.zeros((), dtype=torch.bool, device=device),
@@ -62,8 +65,9 @@ class PLLState(NamedTuple):
 
 
 def _doubled_cumsum(data: torch.Tensor) -> torch.Tensor:
-    zero = torch.zeros((1,), dtype=data.dtype, device=data.device)
-    return torch.cat([zero, torch.cumsum(torch.cat([data, data]), 0)])
+    """[..., n] -> [..., 2n + 1]: 0, then the running sum of data twice."""
+    zero = torch.zeros(data.shape[:-1] + (1,), dtype=data.dtype, device=data.device)
+    return torch.cat([zero, torch.cumsum(torch.cat([data, data], dim=-1), -1)], dim=-1)
 
 
 def find_best_fit(data: torch.Tensor, totalsum, stripsize):
@@ -82,14 +86,15 @@ def find_best_fit(data: torch.Tensor, totalsum, stripsize):
 
 def _candidate_sizes(state: SweetspotState, n: int, minsize: int):
     """Probe set {curr, curr-4, curr+4, curr>>1, curr<<1} in probe order
-    (syncdetector.c:88-93): (safe sizes i32[5], valid bool[5])."""
+    (syncdetector.c:88-93): (safe sizes i32[..., 5], valid bool[..., 5])."""
     minsize = max(int(minsize), 1)
     size2 = n >> 1
     curr = torch.clamp(state.stripsize, minsize, size2)
-    cand = torch.stack([curr, curr - 4, curr + 4, curr >> 1, curr << 1]).to(torch.int32)
+    cand = torch.stack([curr, curr - 4, curr + 4, curr >> 1, curr << 1], dim=-1).to(torch.int32)
     # the base size is always evaluated (an OR, not valid[0] = True: a
     # Python value written into a card tensor is a host -> device copy)
     first = torch.arange(5, device=cand.device) == 0
+    curr = curr[..., None]
     valid = (cand >= minsize) & (cand < size2) & (cand != curr) | first
     safe = torch.where(valid, cand, curr)
     return safe, valid
@@ -120,28 +125,32 @@ def _iir_track(state: SweetspotState, beststripsize, beststripstart, n: int,
 def find_the_sweet_spot(state: SweetspotState, data: torch.Tensor, minsize: int,
                         lowpasscoeff: float):
     """One detection round on a collapsed profile (syncdetector.c:71-119).
-    Returns (state', blurred_profile, strip_start i32)."""
-    n = data.shape[0]
+    data [..., n] with a state of [...] leaves: a leading axis is a stack of
+    independent searches. Returns (state', blurred_profile, strip_start i32)."""
+    n = data.shape[-1]
     data = gaussian_blur_circular(data)
-    totalsum = data.sum()
+    totalsum = data.sum(dim=-1)
     safe, valid = _candidate_sizes(state, n, minsize)
 
     dt = data.dtype
     csum = _doubled_cumsum(data)
-    lo = csum[:n]
-    idx = safe.to(torch.int64)[:, None] + torch.arange(n, device=data.device)[None, :]
-    w = csum[idx] - lo[None, :]
-    s = safe.to(dt)[:, None]
-    m = (totalsum - w) / (torch.full((), float(n), dtype=dt, device=data.device) - s) - w / s
+    lo = csum[..., :n]
+    idx = safe.to(torch.int64)[..., None] + torch.arange(n, device=data.device)  # [..., 5, n]
+    hi = torch.gather(csum[..., None, :].expand(idx.shape[:-1] + csum.shape[-1:]), -1, idx)
+    w = hi - lo[..., None, :]
+    s = safe.to(dt)[..., None]
+    m = ((totalsum[..., None, None] - w)
+         / (torch.full((), float(n), dtype=dt, device=data.device) - s) - w / s)
     m = m * m
-    j = torch.argmax(m, dim=1).to(torch.int32)  # first maximum: first-wins
-    neg_inf = torch.full((5,), float("-inf"), dtype=dt, device=data.device)
-    fits = torch.where(valid, m.max(dim=1).values, neg_inf)
+    j = torch.argmax(m, dim=-1).to(torch.int32)  # first maximum: first-wins
+    neg_inf = torch.full((), float("-inf"), dtype=dt, device=data.device)
+    fits = torch.where(valid, m.amax(dim=-1), neg_inf)
     ids = torch.clamp(j - 1, min=0)  # the reference's id-off-by-one (:46-56)
-    # torch.take, not ids[win]: indexing by a 0-d tensor reads it on the host
-    win = torch.argmax(fits)
-    beststripstart = torch.take(ids, win)
-    beststripsize = torch.take(safe, win)
+    # gathered at the winner, not ids[win]: indexing by a 0-d tensor reads
+    # it on the host
+    win = torch.argmax(fits, dim=-1, keepdim=True)
+    beststripstart = torch.take_along_dim(ids, win, dim=-1).squeeze(-1)
+    beststripsize = torch.take_along_dim(safe, win, dim=-1).squeeze(-1)
     state = _iir_track(state, beststripsize, beststripstart, n, lowpasscoeff, dt=dt)
     return state, data, beststripstart
 

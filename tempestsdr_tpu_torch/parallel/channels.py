@@ -27,8 +27,9 @@ def stack_states(config: PipelineConfig, n_channels: int, fir_ntaps: int = 0,
 def make_channel_step(config: PipelineConfig, params: Params, mesh, n_channels: int = None, *,
                       cond_mode: str = "unrolled", device=None):
     """This rank's part of the channel step sharded over the mesh's 'ch'
-    axis: the hybrid channels step (stream.pipeline.make_channels_step_hybrid)
-    over n_channels // C local channels, the channels
+    axis: the device channel step (stream.pipeline.make_channels_step_hybrid,
+    no host read inside a block, cond_mode passed through) over
+    n_channels // C local channels, the channels
     [row * per_rank, (row + 1) * per_rank) of its row (mesh.ch_index; the
     ranks of one row run the same channels). It takes that block of the
     stacked state, raws [per_rank, 2n] and per-channel controls.

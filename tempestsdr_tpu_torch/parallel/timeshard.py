@@ -15,12 +15,12 @@ rank:
     (positions outside a rank's range are zero, so the sum places them).
 
 The rest runs replicated on every rank, from collective results: the
-autocorrelation ring on the all-gathered envelope, the sync skip, the fold,
-every frame's post-process. It is the single-channel step's host part
-(stream.pipeline.Step.host_part) after the same one packed host fetch of
-five integers a block, which every rank computes identically and so takes
-the same branches; every rank returns the same StreamState and
-StepOutputs as the single-channel step.
+single-channel device step's back half (stream.pipeline._make_step_parts:
+pre_back's ring write of the all-gathered envelope, sync skip and fold
+write, then the round, the emit chain and assemble), behind selects. No
+value is read to the host inside a block outside the mesh's collectives;
+every rank returns the same StreamState and StepOutputs as the
+single-channel step.
 
 All halos and tails come from one all_gather of every rank's head and tail
 samples (the JAX package's ppermutes; no send/recv). Ranks must call the
@@ -43,7 +43,14 @@ from ..ops.resample import (
     resample_counts,
 )
 from ..params import Params
-from ..stream.pipeline import DevicePart, Step, StepControls, _channel_controls, _channel_rows
+from ..stream.pipeline import (
+    StepControls,
+    _Blocks,
+    _channel_rows,
+    _make_step_parts,
+    channel_controls_on,
+    controls_on,
+)
 from ..stream.state import StepOutputs, state_from_leaves, state_leaves
 from .mesh import Mesh
 
@@ -82,8 +89,9 @@ class TimeShardedStep:
         if n % T:
             raise ValueError("block_samples must divide by the time-axis size")
         self.config, self.params, self.mesh, self.T, self.S = config, params, mesh, T, n // T
-        self.step = Step(config, params, mesh.device if device is None else device)
-        self.device = self.step.device
+        self.blocks = _Blocks(config, params, mesh.device if device is None else device)
+        self.parts = _make_step_parts(self.blocks)
+        self.device = self.blocks.device
         need = max(config.resample_taps, params.fir_lowpass_taps - 1)
         if self.S < need:
             raise ValueError(f"a segment of {self.S} samples is shorter than its halo ({need})")
@@ -92,7 +100,7 @@ class TimeShardedStep:
         self.range_resample = _pick_range_resampler(config, params)
 
     def __call__(self, state, raw_seg, controls: StepControls = StepControls()):
-        cfg, step, mesh = self.config, self.step, self.mesh
+        cfg, blocks, mesh = self.config, self.blocks, self.mesh
         n, S, T, taps = cfg.block_samples, self.S, self.T, cfg.resample_taps
         mpl = self.max_pix_local
         t = mesh.time_index
@@ -100,31 +108,25 @@ class TimeShardedStep:
         if raw.shape != (2 * S,):
             raise ValueError(
                 f"raw_seg must be this rank's [{2 * S}] segment, got {tuple(raw.shape)}")
+        controls = controls_on(controls, self.device)
         env = am_demod(normalize_iq(raw))  # (S,)
 
         # ---- drop compensation and the PLL-modulated rate, replicated: the
         # single-channel step's scalar math
-        phase = state.phase_fix
-        dropped = int(controls.samples_dropped)
-        if dropped > 0:
-            skip_before = torch.clamp(phase, min=0) >> FRAC_BITS
-            new_skip = torch.remainder(skip_before - dropped, step.block2)
-            phase = phase + ((new_skip - skip_before) << FRAC_BITS)
-        delta = state.pll.refresh_delta
-        inv_corr = torch.round(step.inv0_f32 * (delta / (step.rr_f32 + delta))).to(torch.int64)
-        inv_fix = cfg.inv0_fix - inv_corr
+        phase, drop_all = self.parts.drop_phase(state, controls.samples_dropped)
+        inv_fix = blocks.rate(state)
 
         # the ring takes the whole block's pre-FIR envelope
-        env_full = mesh.all_gather(env, tiled=True) if step.run_autocorr else env
+        env_full = mesh.all_gather(env, tiled=True) if blocks.run_autocorr else env
 
         # ---- optional FIR: the left halo is the previous segment's tail,
         # the carry the last segment's
         fir_tail, env_rs = state.fir_tail, env
-        if step.fir_taps is not None:
-            k = step.fir_taps.shape[0] - 1
+        if blocks.fir_taps is not None:
+            k = blocks.fir_taps.shape[0] - 1
             tails = mesh.all_gather(env[S - k:])
             env_rs, _ = fir_apply_block(env, state.fir_tail if t == 0 else tails[t - 1],
-                                        step.fir_taps)
+                                        blocks.fir_taps)
             fir_tail = tails[T - 1].clone()
 
         # ---- this rank's global pixel range, from the exact phase: the
@@ -146,7 +148,7 @@ class TimeShardedStep:
         if self.nn_mode:
             # NN's (n*p)//n_out ignores the phase and can reach past the
             # halos: it reads the whole block's post-FIR envelope
-            env_full_rs = env_full if (step.run_autocorr and step.fir_taps is None) \
+            env_full_rs = env_full if (blocks.run_autocorr and blocks.fir_taps is None) \
                 else mesh.all_gather(env_rs, tiled=True)
             pix_local = nn_resample_range(env_full_rs, n_out, p_start, p_end, n_samples=n,
                                           max_pix=mpl)
@@ -168,13 +170,10 @@ class TimeShardedStep:
         placed.index_copy_(0, p_start + torch.arange(mpl, device=self.device), pix_local)
         pixels = mesh.psum(placed[:mp])
 
-        drop_all = phase >= (n << FRAC_BITS)
-        ints = torch.stack([n_out64, drop_all.to(torch.int64), state.fill.to(torch.int64),
-                            state.skip_pixels.to(torch.int64), state.ac_fill.to(torch.int64)])
-        part = DevicePart(env_full, pixels, n_out, phase2, new_tail, fir_tail, ints)
-        # ---- the one host fetch of the block, then the replicated rest
-        new_state, outputs, _ = step.host_part(state, part, ints.tolist(), controls)
-        return new_state, outputs
+        # ---- the replicated rest: the device step's back half
+        inter = self.parts.pre_back(state, controls, drop_all, env_full, pixels, n_out, phase2,
+                                    new_tail, fir_tail)
+        return self.parts.finish(state, inter)
 
 
 def make_time_sharded_step(config: PipelineConfig, params: Params, mesh: Mesh, device=None):
@@ -199,9 +198,10 @@ class GridStep:
     def __call__(self, states, raws, controls: StepControls = StepControls()):
         raws = torch.as_tensor(raws).to(self.device)
         n_ch = raws.shape[0]
-        ctrls = _channel_controls(controls, n_ch)
+        ctl = channel_controls_on(controls, n_ch, self.device)
         rows = _channel_rows(states, n_ch)
-        results = [self.body(rows[c], raws[c], ctrls[c]) for c in range(n_ch)]
+        results = [self.body(rows[c], raws[c], StepControls(*(v[c] for v in ctl)))
+                   for c in range(n_ch)]
         leaves = zip(*(state_leaves(s) for s, _ in results))
         new = state_from_leaves([torch.stack(v) for v in leaves])
         return new, StepOutputs(*(torch.stack(v) for v in zip(*(o for _, o in results))))

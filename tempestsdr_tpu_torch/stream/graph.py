@@ -28,6 +28,12 @@ raises; there is no eager fallback on the card.
 
 On the CPU (the tests) the same device step runs eagerly in a loop.
 
+ChannelRunner(config, params, n_channels, device) is the same runner over
+the channel step (pipeline.make_channels_step_hybrid): one block of C
+channels a call, as the JAX MultiSession dispatches one jitted block per
+call. raws [C, 2n], controls [C, 3] (one row per channel), the stacked
+state (parallel.stack_states); packed is float64 [C, PACKED + K].
+
 The graph's state is one per runner, so one caller at a time may hold it:
 lease() marks the runner taken (False when another holder has it) and
 release(state) hands the holder its state in tensors of its own.
@@ -43,7 +49,7 @@ import torch
 
 from ..config import PipelineConfig
 from ..params import Params
-from .pipeline import CONTROL_DTYPES, StepControls, make_step
+from .pipeline import CONTROL_DTYPES, StepControls, make_channels_step_hybrid, make_step
 from .state import StepOutputs, StreamState, init_state, state_compatible, state_leaves
 
 PACKED = ("refreshrate", "ag_min", "ag_max", "ag_snr", "ac_calls", "ac_plot_valid")
@@ -61,8 +67,9 @@ def packed_values(out: StepOutputs) -> torch.Tensor:
 
 
 def _block_controls(ctl: torch.Tensor) -> StepControls:
-    """Row i of the float64 controls buffer as the step's 0-d controls."""
-    return StepControls(*(ctl[j].to(dtype) for j, dtype in enumerate(CONTROL_DTYPES)))
+    """A row of the float64 controls buffer as the step's controls (0-d
+    each), or the [C, 3] buffer as the channel step's ([C] each)."""
+    return StepControls(*(ctl[..., j].to(dtype) for j, dtype in enumerate(CONTROL_DTYPES)))
 
 
 def _stack(outs) -> StepOutputs:
@@ -82,12 +89,14 @@ class _Graph(NamedTuple):
 class BlockRunner:
     """See the module docstring."""
 
+    rows = "blocks"  # what the leading axis of raws and controls counts
+
     def __init__(self, config: PipelineConfig, params: Params, n_blocks: int, device="cuda"):
         if n_blocks < 1:
             raise ValueError("a runner takes at least one block")
-        self.step = make_step(config, params, device)
-        self.config, self.params, self.device = config, params, self.step.device
-        self.n_blocks = int(n_blocks)
+        self.config, self.params, self.n_blocks = config, params, int(n_blocks)
+        self.step = self._make_step(device)
+        self.device = self.step.device
         self.graphed = self.device.type == "cuda"
         self._graphs: dict = {}  # raw dtype -> _Graph
         self._static: StreamState | None = None
@@ -115,18 +124,35 @@ class BlockRunner:
             self._held = False
         return state
 
+    # ---- what a subclass changes: the step, the state, the captured body
+
+    def _make_step(self, device):
+        return make_step(self.config, self.params, device)
+
+    def _new_state(self) -> StreamState:
+        return init_state(self.config, self.params.fir_lowpass_taps, self.device)
+
+    def _body(self, state, raws, ctl, warm_up=False):
+        """K device steps, their outputs stacked (one step to warm up)."""
+        outs = []
+        for i in range(1 if warm_up else self.n_blocks):
+            state, out = self.step(state, raws[i], _block_controls(ctl[i]))
+            outs.append(out)
+        return state, _stack(outs)
+
     # ---- the K blocks
 
     def run(self, state: StreamState, raws, controls):
         raws = torch.as_tensor(raws)
         if raws.dim() != 2 or raws.shape[0] != self.n_blocks:
-            raise ValueError(f"{tuple(raws.shape)} blocks, the runner takes "
+            raise ValueError(f"{tuple(raws.shape)} {self.rows}, the runner takes "
                              f"[{self.n_blocks}, 2n]")
         ctl = torch.as_tensor(controls, dtype=torch.float64)
         if tuple(ctl.shape) != (self.n_blocks, 3):
             raise ValueError(f"controls {tuple(ctl.shape)}, the runner takes [{self.n_blocks}, 3]")
         if not self.graphed:
-            return self._run_eager(state, raws.to(self.device), ctl.to(self.device))
+            state, out = self._body(state, raws.to(self.device), ctl.to(self.device))
+            return state, out, packed_values(out)
         g = self._graphs.get(raws.dtype)
         if g is None:
             g = self._graphs[raws.dtype] = self._capture(raws.dtype)
@@ -135,14 +161,6 @@ class BlockRunner:
         g.ctl.copy_(ctl)
         g.graph.replay()
         return self._static, g.outputs, g.packed
-
-    def _run_eager(self, state, raws, ctl):
-        outs = []
-        for i in range(self.n_blocks):
-            state, out = self.step(state, raws[i], _block_controls(ctl[i]))
-            outs.append(out)
-        out = _stack(outs)
-        return state, out, packed_values(out)
 
     def _copy_in(self, state: StreamState) -> None:
         if not state_compatible(state, self._static):
@@ -154,29 +172,55 @@ class BlockRunner:
     def _capture(self, dtype) -> _Graph:
         cfg, dev, k = self.config, self.device, self.n_blocks
         if self._static is None:
-            self._static = init_state(cfg, self.params.fir_lowpass_taps, dev)
+            self._static = self._new_state()
         raws = torch.zeros((k, 2 * cfg.block_samples), dtype=dtype, device=dev)
         ctl = torch.zeros((k, 3), dtype=torch.float64, device=dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             scratch = type(self._static)(*_map_leaves(self._static, torch.clone))
-            self.step(scratch, raws[0], _block_controls(ctl[0]))
+            self._body(scratch, raws, ctl, warm_up=True)
         torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the captured graph stays readable (raw_cuda_graph), so
+        # a measurement can count its nodes
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # thread_local: a session streaming on another thread may keep
         # synchronizing while this thread captures (a warm start)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            state, outs = self._static, []
-            for i in range(k):
-                state, out = self.step(state, raws[i], _block_controls(ctl[i]))
-                outs.append(out)
-            outputs = _stack(outs)
+            state, outputs = self._body(self._static, raws, ctl)
             packed = packed_values(outputs)
             for dst, src in zip(state_leaves(self._static), state_leaves(state)):
                 if src is not dst:
                     dst.copy_(src)
+        graph.instantiate()
         return _Graph(graph, raws, ctl, outputs, packed)
+
+
+class ChannelRunner(BlockRunner):
+    """The runner over the channel step: one block of n_channels channels a
+    call (raws [C, 2n], controls [C, 3], the stacked state), one CUDA-graph
+    replay on the card; see the module docstring. The rows of the static
+    state are views the capture wrote through, so a replay writes each
+    channel's fold buffer and ring in place."""
+
+    rows = "channels"
+
+    def __init__(self, config: PipelineConfig, params: Params, n_channels: int, device="cuda", *,
+                 cond_mode: str = "unrolled"):
+        self.cond_mode = cond_mode
+        super().__init__(config, params, n_channels, device)
+
+    def _make_step(self, device):
+        return make_channels_step_hybrid(self.config, self.params, self.n_blocks,
+                                         cond_mode=self.cond_mode, device=device)
+
+    def _new_state(self) -> StreamState:
+        from ..parallel.channels import stack_states
+
+        return stack_states(self.config, self.n_blocks, self.params.fir_lowpass_taps, self.device)
+
+    def _body(self, state, raws, ctl, warm_up=False):
+        return self.step(state, raws, _block_controls(ctl))
 
 
 def _map_leaves(state: StreamState, fn) -> list:

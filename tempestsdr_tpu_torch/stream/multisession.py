@@ -3,16 +3,20 @@
 
 The reference's JNI layer is a hard singleton (TSDRLibraryNDK.c:24
 `tsdr_instance`): one process, one receiver. Here N channels run through one
-multi-channel step (stream/pipeline.py make_channels_step_hybrid: the
-single-channel device part per channel, one host fetch for all channels, a
-shared ring write, the boundary bodies only for the channels that cross a
-boundary), each with its own state rows, drop accounting and frame cadence.
+multi-channel step (stream/pipeline.py make_channels_step_hybrid: per
+channel the single-channel `pre`, one 2-D ring write, the round and emit
+bodies behind selects), each with its own state rows, drop accounting and
+frame cadence.
 
-Per block: one stacked upload of the N raw blocks, the step (its one fetch),
-and, on a block where any channel completed a frame, one download of the
-whole frame stack; on a block where any round completed, one download of
-those channels' plots. Which frames and plots completed is read from the
-host values the step already fetched (its `last`), not from the card.
+The step runs through a ChannelRunner (stream/graph.py), cached per
+(config, params, N, cond_mode, device): on the card one CUDA-graph replay a
+block, as the JAX MultiSession dispatches one jitted block per call; on the
+CPU the same step eagerly. Per block: one stacked upload of the N raw
+blocks into the runner, the replay, ONE packed fetch of [N, PACKED + K]
+(every channel's frame-valid flags and round flag), then the valid frames in
+one download and, where a round completed, those channels' plots in
+another. A session holds its runner while it runs and takes its state back
+in tensors of its own when the run ends.
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from ..events import PLOT_ID, PlotEvent
 from ..params import Params
 from ..parallel.channels import stack_states
 from ..sources.base import Source
-from .pipeline import StepControls, make_channels_step_hybrid
+from .graph import PACKED, ChannelRunner
+from .session import _cached_runner, _download
 
 
 class MultiSession:
@@ -69,13 +74,24 @@ class MultiSession:
         self.on_frame = on_frame
         self.on_plot = on_plot
         self.n_channels = len(sources)
-        self._step = make_channels_step_hybrid(config, params, self.n_channels,
-                                               cond_mode=cond_mode, device=self.device)
+        self.cond_mode = cond_mode
+        self._runner = _cached_runner(
+            ("channels", config, params, self.n_channels, cond_mode, self.device),
+            lambda: ChannelRunner(config, params, self.n_channels, self.device,
+                                  cond_mode=cond_mode))
         self.state = stack_states(config, self.n_channels, params.fir_lowpass_taps, self.device)
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self.samples_dropped_total = [0] * self.n_channels
         self.frames_total = [0] * self.n_channels
+
+    def _hold_runner(self) -> None:
+        """Lease the cached runner; another session holding it gets one of
+        its own."""
+        if not self._runner.lease():
+            self._runner = ChannelRunner(self.config, self.params, self.n_channels, self.device,
+                                         cond_mode=self.cond_mode)
+            self._runner.lease()
 
     def run(self, max_blocks: Optional[int] = None,
             max_frames: Optional[int] = None) -> int:
@@ -85,43 +101,41 @@ class MultiSession:
         streams = [iter(s.stream(self.config.block_samples))
                    for s in self.sources]
         n_ch = self.n_channels
-        sync0, mb = [0] * n_ch, [0.0] * n_ch
+        kf = self.config.frames_per_block
+        h, w = self.config.height, self.config.width
+        ctl = np.zeros((n_ch, 3), np.float64)  # drops; no sync shift, no motion blur
         blocks = 0
         frames = 0
+        self._hold_runner()
         try:
             while self._running:
                 raws = []
-                dropped = []
-                for st in streams:
+                for c, st in enumerate(streams):
                     blk = next(st, None)
                     if blk is None:
                         return frames  # a source ended: stop the group
                     raws.append(np.asarray(blk.samples).reshape(-1))
-                    dropped.append(int(blk.dropped))
-                for c, d in enumerate(dropped):
-                    self.samples_dropped_total[c] += d
-                ctrl = StepControls(dropped, sync0, mb)
-                raw = torch.from_numpy(np.stack(raws)).to(self.device)
-                self.state, out = self._step(self.state, raw, ctrl)
+                    ctl[c, 0] = int(blk.dropped)
+                for c in range(n_ch):
+                    self.samples_dropped_total[c] += int(ctl[c, 0])
+                self.state, out, packed = self._runner.run(self.state, np.stack(raws), ctl)
                 blocks += 1
-                hosts = self._step.last
-                # (C, K): one flag per emit slot (K == 1 for one frame per
-                # block); the frame stack comes down in ONE transfer
-                fv = np.array([h.frame_valid for h in hosts], dtype=bool)
-                stack = out.frame.cpu().numpy() if fv.any() else None
-                for c, k in np.argwhere(fv):
-                    c = int(c)
+                rows = packed.tolist()  # the one fetch of the block
+                slots = [(c, k) for c, row in enumerate(rows) for k in range(kf)
+                         if row[len(PACKED) + k]]
+                got = _download(out.frame.reshape(-1, h, w), [c * kf + k for c, k in slots])
+                for (c, _), frame in zip(slots, got):
                     self.frames_total[c] += 1
                     frames += 1
                     if self.on_frame:
-                        self.on_frame(c, stack[c] if stack.ndim == 3 else stack[c, int(k)])
-                done = [c for c, h in enumerate(hosts) if h.round_done]
+                        self.on_frame(c, frame)
+                done = [c for c, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
                 if self.on_plot and done:
                     f_off, f_len = self.config.ac_frame_window
                     l_off, _ = self.config.ac_line_window
                     sr = self.config.samplerate
-                    plots = torch.cat([out.ac_frame_plot[done], out.ac_line_plot[done]],
-                                      dim=1).cpu().numpy()
+                    plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1),
+                                      done)
                     for row, c in zip(plots, done):
                         self.on_plot(c, PlotEvent(PLOT_ID.FRAME, f_off, row[:f_len], sr))
                         self.on_plot(c, PlotEvent(PLOT_ID.LINE, l_off, row[f_len:], sr))
@@ -131,6 +145,7 @@ class MultiSession:
                     break
         finally:
             self._running = False
+            self.state = self._runner.release(self.state)
             for s in self.sources:
                 s.stop()
         return frames

@@ -1,4 +1,4 @@
-"""The per-block streaming step, single channel.
+"""The per-block streaming steps: one channel, and C channels on one card.
 
 step(state, raw, controls) does for one block of raw IQ what the
 reference's threads do (SURVEY.md §3.2-3.4), as tempestsdr_tpu's make_step:
@@ -29,25 +29,23 @@ offset the JAX step traces (the ring write at fill0, the sync skip by k,
 the fold write at fill, the leftover move from emitted*frame_pixels, the
 autoshift roll) is device index arithmetic, base + arange, kept in range by
 the buffer lengths (state.framebuf_len, the ring's ac_round + block). The
-controls ride as 0-d tensors. So K steps can be captured into one CUDA graph
+controls ride as tensors. So K steps can be captured into one CUDA graph
 (stream/graph.py), as the JAX package scans K steps in one program.
 
-Step is the host-branching form the channel steps (below) and the sharded
-steps (parallel/timeshard.py) are built from: Step.device_part (drop
-compensation, the PLL rate, demod or K2, the FIR, the resample; it ends in
-five integers: n_out, drop flag, fold fill, pending skip and ring fill),
-ONE host fetch of those, then Step.host_part (ring write and FFT round,
-sync skip, fold, emit and post-process, assembly), which branches in
-Python and slices at the fetched offsets, asserted in range.
+The channel steps (ChannelsStep: make_channels_step_hybrid and the
+unrolled, gated and multi forms) and the sharded steps
+(parallel/timeshard.py) are built from the same parts and are device
+programs too: per channel `pre` on that channel's rows, one 2-D ring write,
+then the round and emit bodies per channel or once over the channel axis
+(cond_mode="batched": the post-process ops take a leading axis).
 
-Both update the fold buffer and the autocorrelation ring in place: they
-consume the state they are given, like the JAX Session's donated step.
+Every step updates the fold buffer and the autocorrelation ring in place:
+it consumes the state it is given, like the JAX Session's donated step.
 """
 
 from __future__ import annotations
 
-import threading
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -115,34 +113,6 @@ def controls_on(controls: StepControls, device) -> StepControls:
     return StepControls(*out)
 
 
-class StepHost(NamedTuple):
-    """What the last host-branching step branched on, as host values."""
-
-    frame_valid: tuple  # one bool per emit slot
-    round_done: bool
-
-
-class DevicePart(NamedTuple):
-    """What Step.device_part leaves for the host part."""
-
-    env: torch.Tensor  # f32[n], the envelope the autocorrelation ring takes
-    pixels: torch.Tensor  # f32[max_pix]
-    n_out: torch.Tensor  # i32
-    phase2: torch.Tensor  # i64, the phase after the block
-    new_tail: torch.Tensor  # f32[taps]
-    fir_tail: torch.Tensor
-    ints: torch.Tensor  # i64[5]: n_out, drop_all, fill, skip_pixels, ac_fill
-
-
-class RingPlan(NamedTuple):
-    """The autocorrelation ring's bookkeeping for one block, on the host."""
-
-    fed: bool  # the block's envelope goes into the ring at fill0
-    fill0: int
-    ac_fill: int  # the fill after the block (and its round, if one completes)
-    round_done: bool
-
-
 def _pick_resampler(config: PipelineConfig, params: Params):
     """Params.resampler -> a box resampler, with the JAX package's choices
     and fallbacks (all share the exact int64 carry contract). The kernel
@@ -204,16 +174,18 @@ def _sync_positions(config: PipelineConfig, params: Params, sync_x, sync_y, pll,
 def _sync_apply(params: Params, data2d, sx, sy):
     """Autoshift (circular shift moving the detected strips to the frame
     edges: torch.roll by (-dy, -dx), as two gathers at device-side indices)
-    or green crosshair markers (syncdetector.c:187-218)."""
-    h, w = data2d.shape
+    or green crosshair markers (syncdetector.c:187-218). data2d [..., H, W]
+    with sync states of [...] leaves."""
+    h, w = data2d.shape[-2:]
     dev = data2d.device
     if params.autoshift:
-        rows = torch.remainder(torch.arange(h, device=dev) + sy.dx, h)
-        cols = torch.remainder(torch.arange(w, device=dev) + sx.dx, w)
-        return data2d.index_select(0, rows).index_select(1, cols)
+        rows = torch.remainder(torch.arange(h, device=dev) + sy.dx[..., None], h)
+        cols = torch.remainder(torch.arange(w, device=dev) + sx.dx[..., None], w)
+        out = torch.take_along_dim(data2d, rows[..., :, None], dim=-2)
+        return torch.take_along_dim(out, cols[..., None, :], dim=-1)
     if params.debug_markers:
-        col = torch.arange(w, dtype=torch.int32, device=dev)[None, :] == sx.dx
-        row = torch.arange(h, dtype=torch.int32, device=dev)[:, None] == sy.dx
+        col = torch.arange(w, dtype=torch.int32, device=dev) == sx.dx[..., None, None]
+        row = torch.arange(h, dtype=torch.int32, device=dev)[:, None] == sy.dx[..., None, None]
         return torch.where(col | row, PIXEL_SPECIAL_VALUE_G, data2d)
     return data2d
 
@@ -230,14 +202,15 @@ def _post_process_default_order(config, params, frame2d, screen, ag, sync_x, syn
     wprof, hprof = _collapse(config, params, f)
     sync_x, sync_y, pll = _sync_positions(config, params, sync_x, sync_y, pll, wprof, hprof)
     span = torch.where(mx == mn, torch.ones_like(mx), mx - mn)
-    norm = (f - mn) / span
+    norm = (f - mn[..., None, None]) / span[..., None, None]
     syncres = _sync_apply(params, norm, sync_x, sync_y)
     screen = time_lowpass(screen, syncres, motionblur)
     return screen, screen, ag, sync_x, sync_y, pll
 
 
 def _post_process(config, params, frame2d, screen, ag, sync_x, sync_y, pll, motionblur):
-    """dsp_post_process (dsp.c:134-239): the configurable-order chain."""
+    """dsp_post_process (dsp.c:134-239): the configurable-order chain, on
+    one frame [H, W] or a stack [C, H, W] with carries of [C] leaves."""
     if not params.autogain_after_proc and not params.lowpass_before_sync:
         return _post_process_default_order(config, params, frame2d, screen, ag, sync_x,
                                            sync_y, pll, motionblur)
@@ -268,17 +241,28 @@ def _post_process(config, params, frame2d, screen, ag, sync_x, sync_y, pll, moti
     return result, screen, ag, sync_x, sync_y, pll
 
 
-def _select(pred, a, b):
-    """Commit `a` where the 0-d bool tensor pred holds, else `b`, across
-    matching (named) tuples of tensors; b may hold Python scalars."""
+def _map(fn, *trees):
+    """fn over the matching tensor leaves of (named) tuples."""
+    a = trees[0]
     if isinstance(a, tuple):
-        vals = [_select(pred, x, y) for x, y in zip(a, b)]
+        vals = [_map(fn, *xs) for xs in zip(*trees)]
         return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
-    return torch.where(pred, a, b)
+    return fn(*trees)
+
+
+def _select(pred, a, b):
+    """Commit `a` where the bool tensor pred holds, else `b`, across matching
+    (named) tuples of tensors: pred 0-d, or [C] over the leading channel axis
+    of every leaf (the JAX package's _select_tree); b may hold Python
+    scalars."""
+    def sel(x, y):
+        return torch.where(pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim())), x, y)
+
+    return _map(sel, a, b)
 
 
 class _Blocks:
-    """What both step forms share: the block's geometry, the chosen
+    """What every step form shares: the block's geometry, the chosen
     resampler, the FIR taps and the f32 constants of the PLL-modulated
     rate, all on one device, and the front of the step (demod, FIR,
     resample) from the phase after drop compensation."""
@@ -302,6 +286,15 @@ class _Blocks:
         self.rr_f32 = f32(config.refreshrate)
         self.inv0_f32 = f32(config.inv0_fix)
 
+    def rate(self, state: StreamState):
+        """The fixed-point samples-per-pixel the PLL's delta modulates, in
+        f32 with the JAX operation order (one unit of inv_fix moves the
+        phase)."""
+        delta = state.pll.refresh_delta
+        corr_factor = delta / (self.rr_f32 + delta)
+        inv_corr = torch.round(self.inv0_f32 * corr_factor).to(torch.int64)
+        return self.config.inv0_fix - inv_corr
+
     def resample_block(self, state: StreamState, raw, phase, env=None):
         """The PLL-modulated rate, then demod + resample from `phase`: K2 in
         one launch, or the demod, the optional FIR (the autocorrelation ring
@@ -310,13 +303,7 @@ class _Blocks:
         Returns (env, pixels, n_out, phase2, new_tail, fir_tail)."""
         cfg, params = self.config, self.params
         n, taps, mp = cfg.block_samples, cfg.resample_taps, cfg.max_block_pixels
-        # the PLL's delta modulates the fixed-point samples-per-pixel, in f32
-        # with the JAX operation order (one unit of inv_fix moves the phase)
-        delta = state.pll.refresh_delta
-        corr_factor = delta / (self.rr_f32 + delta)
-        inv_corr = torch.round(self.inv0_f32 * corr_factor).to(torch.int64)
-        inv_fix = cfg.inv0_fix - inv_corr
-
+        inv_fix = self.rate(state)
         fir_tail = state.fir_tail
         if env is None and self.fused and raw.dim() == 1 and raw.dtype in (torch.uint8, torch.int8):
             env, pixels, n_out, phase2 = fused_demod_resample_cuda(
@@ -342,23 +329,55 @@ class _Blocks:
 # ---- the device step ---------------------------------------------------------
 
 
-def _make_step_parts(blocks: _Blocks):
+class StepParts(NamedTuple):
+    """The pieces of the step (_make_step_parts); see there."""
+
+    pre: Callable
+    drop_phase: Callable
+    pre_back: Callable
+    ac_round_fn: Callable
+    emit_chain: Callable
+    emit_ops_of: Callable
+    ac_ops_of: Callable
+    assemble: Callable
+    finish: Callable
+
+
+def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
+                     env_external: bool = False) -> StepParts:
     """The JAX package's _make_step_parts (tempestsdr_tpu/stream/pipeline.py)
     on one device, its lax.conds as selects:
 
       pre(state, raw, controls) -> inter     (drops, rate, demod, resample,
-          ring write, sync skip, fold write: the per-sample work)
+          then pre_back: the per-sample work of one channel)
+      drop_phase(state, dropped) -> (phase, drop_all)   (drop compensation)
+      pre_back(state, controls, drop_all, env, pixels, n_out, phase2,
+          new_tail, fir_tail) -> inter       (ring bookkeeping and write, sync
+          skip, fold write; the time-sharded body's back half too)
       ac_round_fn(ops, round_done) -> ops'   (FFT + running averages and the
           ring's leftover move, committed where round_done)
-      emit_fn(carry, window, mb) -> (carry', frame)   (one frame's post-process)
-      no_emit_fn(carry, window) -> (carry, 0)         (a slot that does not fire)
       emit_chain(ops) -> (ops', frames, valid)        (the K emit slots, each
-          committed where fill2 >= (k+1)*frame_pixels, and the leftover move)
+          one frame's post-process, emit_fn, committed where fill2 >=
+          (k+1)*frame_pixels, else no_emit_fn's zeros; and the leftover move)
       emit_ops_of / ac_ops_of(state, inter) -> ops
       assemble(state, inter, ac_ops, emit_ops, frames, valid) -> (state', outputs)
+      finish(state, inter) -> (state', outputs)       (the round, the emit
+          chain and assemble: the step after pre)
 
-    Every tensor argument is on blocks.device; controls are 0-d tensors
-    (controls_on)."""
+    Every part after pre takes one channel's values or a stack of channels
+    on a leading axis ([C] predicates, frames [C, H, W]): run once over C
+    channels, ac_round_fn and emit_chain are the JAX package's
+    jax.vmap(ac_round_fn) and jax.vmap(emit_fn) with per-channel select
+    commits.
+
+    ac_write_external: pre leaves the ring write to the caller and returns
+    the block's envelope, its fed flag and its fill as env, ac_fed and
+    ac_fill0 (the channel steps' one 2-D write). env_external: pre takes
+    the block's envelope in place of its raw IQ (the caller demodulated
+    every channel at once).
+
+    Every tensor argument is on blocks.device; controls are tensors
+    (controls_on, channel_controls_on)."""
     cfg, params, dev = blocks.config, blocks.params, blocks.device
     n, mp, fp = cfg.block_samples, cfg.max_block_pixels, cfg.frame_pixels
     h, w = cfg.height, cfg.width
@@ -377,28 +396,33 @@ def _make_step_parts(blocks: _Blocks):
     left_idx = torch.arange(mp if k_frames == 1 else fp, device=dev)
     never = torch.zeros((), dtype=torch.bool, device=dev)
 
-    def pre(state: StreamState, raw, controls: StepControls):
-        # ---- drop compensation folded into the phase (dsp.c:313-368):
+    def drop_phase(state: StreamState, dropped):
+        # drop compensation folded into the phase (dsp.c:313-368):
         # (skip_before - dropped) % block2 is a floor modulo
-        dropped = controls.samples_dropped
         skip_before = torch.clamp(state.phase_fix, min=0) >> FRAC_BITS
         new_skip = torch.where(dropped > 0, torch.remainder(skip_before - dropped, blocks.block2),
                                skip_before)
         phase = state.phase_fix + ((new_skip - skip_before) << FRAC_BITS)
-        drop_all = phase >= (n << FRAC_BITS)
+        return phase, phase >= (n << FRAC_BITS)
 
-        env, pixels, n_out, phase2, new_tail, fir_tail = blocks.resample_block(state, raw, phase)
+    def pre(state: StreamState, raw, controls: StepControls):
+        phase, drop_all = drop_phase(state, controls.samples_dropped)
+        res = blocks.resample_block(state, raw, phase, env=raw if env_external else None)
+        return pre_back(state, controls, drop_all, *res)
 
+    def pre_back(state: StreamState, controls: StepControls, drop_all, env, pixels, n_out,
+                 phase2, new_tail, fir_tail):
         # ---- autocorrelation ring (frameratedetector.c:215-230): a drop
         # purges it, a block past the drop is not fed; the write rewrites
         # the ring's own values where the block is not fed
         if run_autocorr:
-            purge = dropped != 0
+            purge = controls.samples_dropped != 0
             fed = ~drop_all & ~purge
             fill0 = torch.where(purge, 0, state.ac_fill)
-            at = fill0.to(torch.int64) + ring_idx
             ac_buf = state.ac_buf
-            ac_buf.index_copy_(0, at, torch.where(fed, env, ac_buf[at]))
+            if not ac_write_external:
+                at = fill0.to(torch.int64) + ring_idx
+                ac_buf.index_copy_(0, at, torch.where(fed, env, ac_buf[at]))
             ac_fill = torch.where(fed, fill0 + n, fill0)
             round_done = ac_fill >= ac_round
             ac_fill = torch.where(round_done, ac_fill - ac_round, ac_fill)
@@ -419,23 +443,26 @@ def _make_step_parts(blocks: _Blocks):
         framebuf = state.framebuf
         framebuf.index_copy_(0, state.fill.to(torch.int64) + pix_idx, pixels)
         fill2 = state.fill + n_valid
-        return dict(phase2=phase2, new_tail=new_tail, fir_tail=fir_tail, pend=pend,
-                    framebuf=framebuf, fill2=fill2, emit=fill2 >= fp, n_out=n_out,
-                    ac_buf=ac_buf, ac_fill=ac_fill, round_done=round_done,
-                    motionblur=controls.motionblur)
+        inter = dict(phase2=phase2, new_tail=new_tail, fir_tail=fir_tail, pend=pend,
+                     framebuf=framebuf, fill2=fill2, emit=fill2 >= fp, n_out=n_out,
+                     ac_buf=ac_buf, ac_fill=ac_fill, round_done=round_done,
+                     motionblur=controls.motionblur)
+        if ac_write_external and run_autocorr:
+            inter.update(env=env, ac_fed=fed, ac_fill0=fill0)
+        return inter
 
     def ac_round_fn(ops, round_done):
         buf, avg_f, avg_l, calls, last_full = ops
-        r = autocorrelation_magnitude(buf[:ac_fft])
+        r = autocorrelation_magnitude(buf[..., :ac_fft])
         calls1 = calls + 1
-        new = (accumulate_running_mean(avg_f, r[fw_off:fw_off + fw_len], calls1),
-               accumulate_running_mean(avg_l, r[lw_off:lw_off + lw_len], calls1),
+        new = (accumulate_running_mean(avg_f, r[..., fw_off:fw_off + fw_len], calls1),
+               accumulate_running_mean(avg_l, r[..., lw_off:lw_off + lw_len], calls1),
                calls1,
-               r[:ac_fft // 2])
+               r[..., :ac_fft // 2])
         # the leftover (one block; ac_round >= n, so the ranges are apart)
         # to the front of the ring
-        m = buf.shape[0] - ac_round
-        buf[:m] = torch.where(round_done, buf[ac_round:], buf[:m])
+        m = buf.shape[-1] - ac_round
+        buf[..., :m] = torch.where(round_done[..., None], buf[..., ac_round:], buf[..., :m])
         return (buf,) + _select(round_done, new, (avg_f, avg_l, calls, last_full))
 
     def emit_fn(carry, window, motionblur):
@@ -452,26 +479,28 @@ def _make_step_parts(blocks: _Blocks):
         buffer's k-th frame every block, and commits where fill2 >=
         (k+1)*fp, the carried state chained through; then one leftover
         move from emitted*fp to the front (onto itself when nothing was
-        emitted). Returns (ops', frames, valid): frames (h, w) and valid 0-d
-        for K == 1, (K, h, w) and (K,) for K > 1."""
+        emitted). Returns (ops', frames, valid): frames [..., H, W] and
+        valid [...] for K == 1, [..., K, H, W] and [..., K] for K > 1."""
         framebuf, fill2, screen, ag, sx, sy, pll, motionblur = ops
+        lead = framebuf.shape[:-1]
         carry = (screen, ag, sx, sy, pll)
         frames, valids = [], []
         for slot in range(k_frames):
             ek = fill2 >= (slot + 1) * fp
-            window = framebuf[slot * fp:(slot + 1) * fp].view(h, w)
+            window = framebuf[..., slot * fp:(slot + 1) * fp].reshape(lead + (h, w))
             carry, fk = _select(ek, emit_fn(carry, window, motionblur),
                                 no_emit_fn(carry, window))
             frames.append(fk)
             valids.append(ek)
-        valid = torch.stack(valids)
-        emitted = valid.sum(dtype=torch.int32)
-        framebuf[:left_idx.shape[0]] = framebuf[emitted.to(torch.int64) * fp + left_idx]
+        valid = torch.stack(valids, dim=-1)
+        emitted = valid.sum(dim=-1, dtype=torch.int32)
+        at = emitted.to(torch.int64)[..., None] * fp + left_idx
+        framebuf[..., :left_idx.shape[0]] = torch.gather(framebuf, -1, at)
         screen, ag, sx, sy, pll = carry
         emit_ops = (framebuf, fill2 - emitted * fp, screen, ag, sx, sy, pll, motionblur)
         if k_frames == 1:
             return emit_ops, frames[0], valids[0]
-        return emit_ops, torch.stack(frames), valid
+        return emit_ops, torch.stack(frames, dim=-3), valid
 
     def emit_ops_of(state: StreamState, inter):
         return (inter["framebuf"], inter["fill2"], state.screenbuffer,
@@ -485,8 +514,8 @@ def _make_step_parts(blocks: _Blocks):
     def assemble(state: StreamState, inter, ac_ops, emit_ops, frame_out, frame_valid):
         ac_buf, ac_avg_frame, ac_avg_line, ac_calls, ac_last_full = ac_ops
         framebuf, fill, screen, ag, sync_x, sync_y, pll, _mb = emit_ops
-        n_emitted = (frame_valid.to(torch.int32) if frame_valid.dim() == 0
-                     else frame_valid.sum(dtype=torch.int32))
+        n_emitted = (frame_valid.to(torch.int32) if k_frames == 1
+                     else frame_valid.sum(dim=-1, dtype=torch.int32))
         new_state = StreamState(
             phase_fix=inter["phase2"], tail=inter["new_tail"], fir_tail=inter["fir_tail"],
             skip_pixels=inter["pend"], fill=fill, framebuf=framebuf, screenbuffer=screen,
@@ -502,8 +531,15 @@ def _make_step_parts(blocks: _Blocks):
             ac_plot_valid=inter["round_done"], ac_calls=ac_calls)
         return new_state, outputs
 
-    return (pre, ac_round_fn, emit_fn, no_emit_fn, emit_ops_of, ac_ops_of, assemble,
-            emit_chain)
+    def finish(state: StreamState, inter):
+        ac_ops = ac_ops_of(state, inter)
+        if run_autocorr:
+            ac_ops = ac_round_fn(ac_ops, inter["round_done"])
+        emit_ops, frame_out, valid = emit_chain(emit_ops_of(state, inter))
+        return assemble(state, inter, ac_ops, emit_ops, frame_out, valid)
+
+    return StepParts(pre, drop_phase, pre_back, ac_round_fn, emit_chain, emit_ops_of, ac_ops_of,
+                     assemble, finish)
 
 
 class DeviceStep(_Blocks):
@@ -515,17 +551,12 @@ class DeviceStep(_Blocks):
 
     def __init__(self, config: PipelineConfig, params: Params, device):
         super().__init__(config, params, device)
-        (self._pre, self._ac_round_fn, _, _, self._emit_ops_of, self._ac_ops_of,
-         self._assemble, self._emit_chain) = _make_step_parts(self)
+        self.parts = _make_step_parts(self)
 
     def __call__(self, state: StreamState, raw, controls: StepControls = StepControls()):
         raw = torch.as_tensor(raw).to(self.device)
-        inter = self._pre(state, raw, controls_on(controls, self.device))
-        ac_ops = self._ac_ops_of(state, inter)
-        if self.run_autocorr:
-            ac_ops = self._ac_round_fn(ac_ops, inter["round_done"])
-        emit_ops, frame_out, valid = self._emit_chain(self._emit_ops_of(state, inter))
-        return self._assemble(state, inter, ac_ops, emit_ops, frame_out, valid)
+        inter = self.parts.pre(state, raw, controls_on(controls, self.device))
+        return self.parts.finish(state, inter)
 
 
 def make_step(config: PipelineConfig, params: Params, device="cuda",
@@ -533,267 +564,36 @@ def make_step(config: PipelineConfig, params: Params, device="cuda",
     """Build the per-block device step for one channel:
     step(state, raw [2*block_samples] any supported dtype, controls) ->
     (state', StepOutputs), reading nothing to the host. batched is accepted
-    for the JAX package's API and changes nothing: its batched step exists
-    for vmap, which the port does not use, so the port's runs the same
-    kernels as the plain one."""
+    for the JAX package's API, where it marks a step that a caller vmaps
+    over channels (forcing the XLA resampler forms there); the port's
+    channel steps batch over channels themselves (cond_mode="batched"), so
+    the flag changes nothing here: the step runs the kernels the plain one
+    runs."""
     return DeviceStep(config, params, device)
 
 
-# ---- the host-branching step -------------------------------------------------
-
-
-def _check_range(start: int, size: int, length: int, what: str) -> None:
-    """A slice the JAX step takes with lax.dynamic_update_slice, which would
-    clamp an out-of-range start; the buffer sizes (state.framebuf_len, the
-    ring's ac_round + block) keep every start in range, and this holds it."""
-    if not (0 <= start and start + size <= length):
-        raise RuntimeError(f"{what} [{start}, {start + size}) outside [0, {length})")
-
-
-class Step(_Blocks):
-    """The host-branching single-channel step for one (config, params,
-    device), the parts of the channel and sharded steps; see the module
-    docstring. `last` holds the host values of the calling thread's latest
-    call: a Step keeps nothing else per call, so it may be stepped from
-    several threads, each on a state of its own."""
-
-    def __init__(self, config: PipelineConfig, params: Params, device):
-        super().__init__(config, params, device)
-        self._per_thread = threading.local()
-
-    @property
-    def last(self) -> StepHost | None:
-        return getattr(self._per_thread, "last", None)
-
-    def _full(self, v, dtype):
-        return torch.full((), v, dtype=dtype, device=self.device)
-
-    def __call__(self, state: StreamState, raw, controls: StepControls = StepControls()):
-        raw = torch.as_tensor(raw).to(self.device)
-        part = self.device_part(state, raw, controls)
-        # ---- the one host fetch of the block
-        host = part.ints.tolist()
-        new_state, outputs, last = self.host_part(state, part, host, controls)
-        self._per_thread.last = last
-        return new_state, outputs
-
-    def device_part(self, state: StreamState, raw, controls: StepControls,
-                    env=None) -> DevicePart:
-        """Everything up to the fetch, all launched without waiting: drop
-        compensation, the PLL-modulated rate, demod or K2, the optional FIR
-        and the resample. `env` is the block's envelope when the caller
-        demodulated it (the channel steps' stacked demod); raw is then
-        unused."""
-        n = self.config.block_samples
-        dropped = int(controls.samples_dropped)
-
-        # ---- drop compensation folded into the phase (dsp.c:313-368):
-        # (skip_before - dropped) % block2 is a floor modulo
-        phase = state.phase_fix
-        if dropped > 0:
-            skip_before = torch.clamp(phase, min=0) >> FRAC_BITS
-            new_skip = torch.remainder(skip_before - dropped, self.block2)
-            phase = phase + ((new_skip - skip_before) << FRAC_BITS)
-        env, pixels, n_out, phase2, new_tail, fir_tail = self.resample_block(state, raw, phase, env)
-
-        drop_all = phase >= (n << FRAC_BITS)
-        ints = torch.stack([
-            n_out.to(torch.int64), drop_all.to(torch.int64), state.fill.to(torch.int64),
-            state.skip_pixels.to(torch.int64), state.ac_fill.to(torch.int64),
-        ])
-        return DevicePart(env, pixels, n_out, phase2, new_tail, fir_tail, ints)
-
-    def ring_plan(self, dropped: int, drop_all: int, ac_fill: int) -> RingPlan:
-        """The ring's bookkeeping from host values (frameratedetector.c:
-        215-230): a drop purges the ring, a block past the drop is not fed,
-        a round completes when the fill reaches ac_round_samples."""
-        if not self.run_autocorr:
-            return RingPlan(False, ac_fill, ac_fill, False)
-        purge = dropped != 0
-        fed = not drop_all and not purge
-        fill0 = 0 if purge else ac_fill
-        ac_fill = fill0 + self.config.block_samples if fed else fill0
-        round_done = ac_fill >= self.config.ac_round_samples
-        if round_done:
-            ac_fill -= self.config.ac_round_samples
-        return RingPlan(fed, fill0, ac_fill, round_done)
-
-    def write_ring(self, ac_buf, fill0: int, env) -> None:
-        """env [..., n] into ac_buf [..., L] at fill0, in place: one ring, or
-        a stack of rings fed at one fill (the channel steps' shared write)."""
-        n = self.config.block_samples
-        _check_range(fill0, n, ac_buf.shape[-1], "autocorrelation ring write")
-        ac_buf[..., fill0:fill0 + n] = env
-
-    def host_part(self, state: StreamState, part: DevicePart, host, controls: StepControls,
-                  plan: RingPlan | None = None, tensors: bool = True):
-        """Everything after the fetch, given its five integers `host`: the
-        ring write (unless `plan` says the caller made it) and FFT round, the
-        sync skip, the fold, every completed frame's post-process, and the
-        new state and outputs. Returns (state', StepOutputs, StepHost).
-
-        tensors=False leaves what the host knows as host values for a caller
-        that stacks channels (skip_pixels, fill, ac_fill: ints; frame_valid,
-        ac_plot_valid: bools, one per slot for K > 1; frame: a tensor or
-        None per slot; refreshrate: None)."""
-        cfg, params = self.config, self.params
-        mp, fp, h, w = cfg.max_block_pixels, cfg.frame_pixels, cfg.height, cfg.width
-        n_out_h, drop_all_h, fill_h, skip_h, ac_fill_h = host
-        pixels = part.pixels
-
-        # ---- autocorrelation ring (frameratedetector.c:215-230)
-        ac_buf = state.ac_buf
-        ac = (state.ac_avg_frame, state.ac_avg_line, state.ac_calls, state.ac_last_full)
-        if plan is None:
-            plan = self.ring_plan(int(controls.samples_dropped), drop_all_h, ac_fill_h)
-            if plan.fed:
-                self.write_ring(ac_buf, plan.fill0, part.env)
-        if plan.round_done:
-            ac = self._ac_round(ac_buf, *ac)
-
-        # ---- manual sync shift as a pixel skip (tsdr_sync)
-        pend = (skip_h + int(controls.syncoffset)) % fp
-        k = min(pend, n_out_h)
-        if k > 0:
-            pixels = torch.cat([pixels[k:], torch.zeros((k,), dtype=torch.float32,
-                                                        device=self.device)])
-        n_valid = n_out_h - k
-        pend -= k
-
-        # ---- frame fold: pixels past n_valid are zero and rewritten before read
-        framebuf = state.framebuf
-        _check_range(fill_h, mp, framebuf.shape[0], "fold write")
-        framebuf[fill_h:fill_h + mp] = pixels
-        fill2 = fill_h + n_valid
-
-        # ---- emit every completed frame
-        post = (state.screenbuffer, (state.ag_min, state.ag_max, state.ag_snr),
-                state.sync_x, state.sync_y, state.pll)
-        mb = float(controls.motionblur)
-        k_frames = cfg.frames_per_block
-        valid = [fill2 >= (i + 1) * fp for i in range(k_frames)]
-        frames = []
-        for i, ok in enumerate(valid):
-            if ok:
-                window = framebuf[i * fp:(i + 1) * fp].view(h, w)
-                result, *post = _post_process(cfg, params, window, *post, mb)
-                frames.append(result)
-            else:
-                frames.append(None)
-        emitted = sum(valid)
-        if emitted:
-            # move the leftover (< one frame) to the front; the source and the
-            # destination never overlap (buffer length, state.framebuf_len)
-            src = framebuf[emitted * fp:emitted * fp + (framebuf.shape[0] - fp if k_frames == 1 else fp)]
-            framebuf[:src.shape[0]] = src
-        fill_new = fill2 - emitted * fp
-        screen, ag, sync_x, sync_y, pll = post
-
-        if tensors:
-            scalar = self._full
-            zeros = lambda: torch.zeros((h, w), dtype=torch.float32, device=self.device)  # noqa: E731
-            if k_frames == 1:
-                frame_out = frames[0] if valid[0] else zeros()
-                frame_valid = self._full(valid[0], torch.bool)
-            else:
-                frame_out = torch.stack([f if f is not None else zeros() for f in frames])
-                frame_valid = torch.stack([self._full(v, torch.bool) for v in valid])
-            refreshrate = self.rr_f32 + pll.refresh_delta
-        else:
-            scalar = lambda v, dtype: v  # noqa: E731
-            frame_out, frame_valid = (frames[0], valid[0]) if k_frames == 1 else (frames, valid)
-            refreshrate = None
-
-        ac_avg_frame, ac_avg_line, ac_calls, ac_last_full = ac
-        runs, frame_count = state.runs, state.frame_count
-        if emitted:
-            runs = runs + emitted
-            frame_count = frame_count + emitted
-        new_state = StreamState(
-            phase_fix=part.phase2,
-            tail=part.new_tail,
-            fir_tail=part.fir_tail,
-            skip_pixels=scalar(pend, torch.int32),
-            fill=scalar(fill_new, torch.int32),
-            framebuf=framebuf,
-            screenbuffer=screen,
-            ag_min=ag[0],
-            ag_max=ag[1],
-            ag_snr=ag[2],
-            sync_x=sync_x,
-            sync_y=sync_y,
-            pll=pll,
-            runs=runs,
-            frame_count=frame_count,
-            ac_buf=ac_buf,
-            ac_fill=scalar(plan.ac_fill, torch.int32),
-            ac_avg_frame=ac_avg_frame,
-            ac_avg_line=ac_avg_line,
-            ac_calls=ac_calls,
-            ac_last_full=ac_last_full,
-        )
-        outputs = StepOutputs(
-            frame=frame_out,
-            frame_valid=frame_valid,
-            n_pixels=part.n_out,
-            refreshrate=refreshrate,
-            pll_locked=pll.locked,
-            ag_min=ag[0],
-            ag_max=ag[1],
-            ag_snr=ag[2],
-            sync_dx=sync_x.dx,
-            sync_dy=sync_y.dx,
-            ac_frame_plot=ac_avg_frame,
-            ac_line_plot=ac_avg_line,
-            ac_plot_valid=scalar(plan.round_done, torch.bool),
-            ac_calls=ac_calls,
-        )
-        return new_state, outputs, StepHost(tuple(valid), plan.round_done)
-
-    def _ac_round(self, buf, avg_f, avg_l, calls, last_full):
-        """One estimation round: FFT autocorrelation of the ring's first
-        ac_fft samples, running averages over the two lag windows, then the
-        leftover (one block) moves to the front of the ring."""
-        cfg = self.config
-        ac_fft, ac_round = cfg.ac_fft_size, cfg.ac_round_samples
-        fw_off, fw_len = cfg.ac_frame_window
-        lw_off, lw_len = cfg.ac_line_window
-        r = autocorrelation_magnitude(buf[:ac_fft])
-        calls = calls + 1
-        avg_f = accumulate_running_mean(avg_f, r[fw_off:fw_off + fw_len], calls)
-        avg_l = accumulate_running_mean(avg_l, r[lw_off:lw_off + lw_len], calls)
-        last_full = r[:ac_fft // 2].clone()
-        # ac_round >= block_samples, so the two ranges do not overlap
-        buf[:buf.shape[0] - ac_round] = buf[ac_round:]
-        return avg_f, avg_l, calls, last_full
-
-
 # ---- the channel steps -----------------------------------------------------
-# Each takes a stacked state (every leaf with a leading channel axis C, rows
-# owning their memory: parallel.channels.stack_states), raws [C, 2n] and
-# per-channel controls, and returns the stacked state and stacked
-# StepOutputs: frame [C, H, W] and frame_valid [C] (K == 1), or [C, K, H, W]
-# and [C, K]. A channel is stepped through views of its rows, so its fold
-# buffer and ring are written in place; every other leaf it returns goes back
-# with one torch.stack per leaf (a leaf no channel changed stays the stacked
-# tensor it was), and what the host knows (fills, flags) with one host ->
-# device copy per leaf. `last` is a tuple of one StepHost per channel.
 
 
-def _per_channel(value, n: int) -> list:
-    """A StepControls field for n channels: a length-n sequence, array or
-    tensor, or one scalar for all (a CUDA tensor costs a fetch)."""
-    if isinstance(value, (torch.Tensor, np.ndarray)):
-        value = value.tolist()
-    if isinstance(value, (list, tuple)):
-        if len(value) != n:
-            raise ValueError(f"a control has {len(value)} values for {n} channels")
-        return list(value)
-    return [value] * n
-
-
-def _channel_controls(controls: StepControls, n: int) -> list:
-    return [StepControls(*vals) for vals in zip(*(_per_channel(v, n) for v in controls))]
+def channel_controls_on(controls: StepControls, n: int, device) -> StepControls:
+    """StepControls for n channels as [n] tensors of their JAX dtypes on
+    `device`. Each field is a length-n sequence, numpy array or tensor, or
+    one value for every channel; a tensor is converted on its device, so
+    nothing is read back to the host."""
+    out = []
+    for v, dtype in zip(controls, CONTROL_DTYPES):
+        if isinstance(v, torch.Tensor):
+            t = v.to(device=device, dtype=dtype)
+        elif isinstance(v, (list, tuple, np.ndarray)):
+            t = torch.as_tensor(np.asarray(v)).to(device=device, dtype=dtype)
+        else:
+            t = torch.full((n,), v, dtype=dtype, device=device)
+        if t.dim() == 0:
+            t = t.expand(n)
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"a control has {t.shape[0]} values for {n} channels")
+        out.append(t)
+    return StepControls(*out)
 
 
 def _channel_rows(states: StreamState, n: int) -> list:
@@ -802,135 +602,95 @@ def _channel_rows(states: StreamState, n: int) -> list:
     return [state_from_leaves([x[c] for x in leaves]) for c in range(n)]
 
 
-class _Restack:
-    """Puts per-channel leaves back on a channel axis. A set of leaves that
-    are each channel's own row view of one stacked tensor is that tensor (no
-    launch); tensors are stacked once (the same set twice, once); host values
-    go up in one copy (non-blocking, so no wait on the card)."""
+class ChannelsStep(_Blocks):
+    """Every channel step, a device program as the JAX package's
+    make_channels_step_hybrid: per channel `pre` on that channel's row views
+    (K1 or K2 per channel; the fold written in place), then
 
-    def __init__(self, stacked_leaves, rows, device):
-        self.device = device
-        self.origin = {}
-        for i, parent in enumerate(stacked_leaves):
-            for c, row in enumerate(rows):
-                self.origin[id(state_leaves(row)[i])] = (i, c)
-        self.parents = stacked_leaves
-        self.memo = {}
+      - the ring write as ONE 2-D indexed write into the stacked rings at
+        per-channel offsets fill0[c] + arange(n), where a row that is not
+        fed rewrites its own values (the JAX write_shared and
+        write_per_channel branches in one operation, with no branch);
+      - cond_mode="unrolled": per channel the round and the emit chain on
+        its row slices, behind selects; cond_mode="batched": the round and
+        the emit chain ONCE over the channel axis, each committed per
+        channel with a [C] predicate (jax.vmap(ac_round_fn) and
+        jax.vmap(emit_fn) there);
+      - assemble over the channel axis.
 
-    def __call__(self, vals, dtype=None):
-        if all(isinstance(v, torch.Tensor) for v in vals):
-            where = [self.origin.get(id(v)) for v in vals]
-            if all(o is not None and o == (where[0][0], c) for c, o in enumerate(where)):
-                return self.parents[where[0][0]]
-            key = tuple(id(v) for v in vals)
-            if key not in self.memo:
-                self.memo[key] = torch.stack(vals)
-            return self.memo[key]
-        host = torch.tensor(vals, dtype=dtype)
-        return host.to(self.device, non_blocking=True) if self.device.type == "cuda" else host
+    It takes a stacked state (every leaf with a leading channel axis C, rows
+    owning their memory: parallel.channels.stack_states), raws [C, 2n] and
+    per-channel controls (channel_controls_on), and returns the stacked state
+    and StepOutputs: frame [C, H, W] and frame_valid [C] (K == 1), or
+    [C, K, H, W] and [C, K]. Nothing is read to the host, so a block can be
+    captured into a CUDA graph (stream/graph.py, ChannelRunner). The fold
+    buffers and rings are written in place. n_channels=None takes the count
+    from raws."""
 
-
-def _assemble(step: Step, states: StreamState, rows: list, results: list):
-    """(stacked state', stacked StepOutputs) from per-channel results of
-    host_part(tensors=False)."""
-    cfg = step.config
-    restack = _Restack(state_leaves(states), rows, step.device)
-    per_leaf = zip(*(state_leaves(r[0]) for r in results))
-    new_states = state_from_leaves([
-        restack(list(vals), parent.dtype)
-        for vals, parent in zip(per_leaf, state_leaves(states))])
-    fields = {}
-    for name, vals in zip(StepOutputs._fields, zip(*(r[1] for r in results))):
-        vals = list(vals)
-        if name == "frame" and not all(isinstance(v, torch.Tensor) for v in vals):
-            k = cfg.frames_per_block
-            frames = torch.zeros((len(vals),) + ((k,) if k > 1 else ()) + (cfg.height, cfg.width),
-                                 dtype=torch.float32, device=step.device)
-            for c, f in enumerate(vals):
-                for slot, fk in enumerate(f if k > 1 else [f]):
-                    if fk is not None:
-                        (frames[c, slot] if k > 1 else frames[c]).copy_(fk)
-            fields[name] = frames
-        elif name == "refreshrate":
-            fields[name] = step.rr_f32 + new_states.pll.refresh_delta
-        else:
-            fields[name] = restack(vals, torch.bool)
-    return new_states, StepOutputs(**fields)
-
-
-class _ChannelsStep:
-    """Every channel step: each channel's device part, ONE host fetch of the
-    [C, 5] integers for all channels, the ring writes (with shared_ring, one
-    2-D write into the stacked rings when every channel is fed at one fill;
-    else one per fed channel), then each channel's host part, which runs a
-    round or a frame's post-process only for the channels whose integers say
-    so. n_channels=None takes the count from raws."""
-
-    def __init__(self, config: PipelineConfig, params: Params, n_channels: int | None, device,
-                 *, shared_ring: bool = False, stacked_demod: bool = False):
-        self.step = Step(config, params, device)
-        self.config, self.params, self.device = config, params, self.step.device
-        self.n_channels = n_channels
-        self.shared_ring, self.stacked_demod = shared_ring, stacked_demod
-        self._per_thread = threading.local()
-
-    @property
-    def last(self):
-        return getattr(self._per_thread, "last", None)
+    def __init__(self, config: PipelineConfig, params: Params, n_channels: int | None, device, *,
+                 cond_mode: str = "unrolled", stacked_demod: bool = False):
+        super().__init__(config, params, device)
+        self.n_channels, self.cond_mode = n_channels, cond_mode
+        self.stacked_demod = stacked_demod
+        self.parts = _make_step_parts(self, ac_write_external=True, env_external=stacked_demod)
+        self._ring_idx = torch.arange(config.block_samples, device=self.device)
 
     def __call__(self, states: StreamState, raws, controls: StepControls = StepControls()):
-        step = self.step
+        p = self.parts
         raws = torch.as_tensor(raws).to(self.device)
         n_ch = raws.shape[0] if self.n_channels is None else self.n_channels
         if raws.dim() != 2 or raws.shape[0] != n_ch:
             raise ValueError(f"raws must be [{n_ch}, 2n], got {tuple(raws.shape)}")
-        ctrls = _channel_controls(controls, n_ch)
+        ctl = channel_controls_on(controls, n_ch, self.device)
         rows = _channel_rows(states, n_ch)
-        feed = None
+        feed = raws
         if self.stacked_demod:
             # one demod over every channel's block: each row is 2n values,
             # so flattening keeps every I/Q pair together (bit-identical to
             # per-channel demod, an elementwise computation)
             feed = am_demod(normalize_iq(raws.reshape(-1))).reshape(n_ch, -1)
-        parts = [step.device_part(rows[c], raws[c], ctrls[c], None if feed is None else feed[c])
-                 for c in range(n_ch)]
-        # ---- the one host fetch of the block, for every channel
-        host = torch.stack([p.ints for p in parts]).tolist()
-        plans = [None] * n_ch
-        if self.shared_ring and step.run_autocorr:
-            plans = [step.ring_plan(int(ctrls[c].samples_dropped), host[c][1], host[c][4])
-                     for c in range(n_ch)]
-            if all(p.fed for p in plans) and len({p.fill0 for p in plans}) == 1:
-                envs = feed if feed is not None else torch.stack([p.env for p in parts])
-                step.write_ring(states.ac_buf, plans[0].fill0, envs)
-            else:  # a drop desynchronised the fills: per-channel writes
-                for c, p in enumerate(plans):
-                    if p.fed:
-                        step.write_ring(rows[c].ac_buf, p.fill0, parts[c].env)
-        results = [step.host_part(rows[c], parts[c], host[c], ctrls[c], plans[c], tensors=False)
-                   for c in range(n_ch)]
-        self._per_thread.last = tuple(r[2] for r in results)
-        return _assemble(step, states, rows, results)
+        inters = [p.pre(rows[c], feed[c], StepControls(*(v[c] for v in ctl)))
+                  for c in range(n_ch)]
+        own = {"framebuf", "ac_buf", "motionblur"} | ({"env"} if self.stacked_demod else set())
+        inter = {k: torch.stack([i[k] for i in inters]) for k in inters[0] if k not in own}
+        inter.update(framebuf=states.framebuf, ac_buf=states.ac_buf, motionblur=ctl.motionblur)
+        if self.run_autocorr:
+            envs = feed if self.stacked_demod else inter.pop("env")
+            at = inter.pop("ac_fill0").to(torch.int64)[:, None] + self._ring_idx
+            fed = inter.pop("ac_fed")[:, None]
+            states.ac_buf.scatter_(1, at, torch.where(fed, envs, states.ac_buf.gather(1, at)))
+        if self.cond_mode == "batched":
+            return p.finish(states, inter)
+        ac_ops, emit_ops = p.ac_ops_of(states, inter), p.emit_ops_of(states, inter)
+        acs, emits, frames, valids = [], [], [], []
+        for c in range(n_ch):
+            ac_c = _map(lambda x: x[c], ac_ops)
+            if self.run_autocorr:
+                ac_c = p.ac_round_fn(ac_c, inter["round_done"][c])
+            emit_c, frame_c, valid_c = p.emit_chain(_map(lambda x: x[c], emit_ops))
+            acs.append(ac_c[1:])
+            emits.append(emit_c[1:])
+            frames.append(frame_c)
+            valids.append(valid_c)
+        stack = lambda *xs: torch.stack(xs)  # noqa: E731
+        # the ring and the fold buffer were written in place through the rows
+        ac_ops = (states.ac_buf,) + _map(stack, *acs)
+        emit_ops = (states.framebuf,) + _map(stack, *emits)
+        return p.assemble(states, inter, ac_ops, emit_ops, torch.stack(frames), torch.stack(valids))
 
 
 def make_channels_step_hybrid(config: PipelineConfig, params: Params, n_channels: int, *,
                               cond_mode: str = "unrolled", demod_mode: str = "per-channel",
-                              device="cuda"):
-    """The production multi-channel step (MultiSession's): per channel the
-    single-channel device part (K1 at m == 2, or K2 with resampler="fused"),
-    ONE packed host fetch of every channel's five integers, the ring write as
-    one 2-D write when every channel is fed at one fill (per-channel writes
-    after a drop desynchronises them), then per channel the host part.
+                              device="cuda") -> ChannelsStep:
+    """The production multi-channel step (MultiSession's), a device program
+    (ChannelsStep): per channel `pre` (K1 at m == 2, or K2 with
+    resampler="fused"), the ring write as one 2-D write, then the round and
+    emit bodies per channel (cond_mode="unrolled") or once over the channel
+    axis (cond_mode="batched", one frame per block, the reference's limit).
 
     demod_mode="stacked" demodulates all channels' raw blocks in one call
     (bit-identical to per-channel demod); resampler="fused" forces
-    per-channel demod, since K2 takes the raw bytes.
-
-    cond_mode is validated for API parity with the JAX package, where it
-    chooses between real per-channel branches ("unrolled") and any()-gated
-    bodies ("batched"), and it changes nothing here: the host knows from the
-    fetch which channels crossed a boundary, so the bodies run only for
-    those. "batched" keeps the reference's one-frame-per-block error."""
+    per-channel demod, since K2 takes the raw bytes."""
     if cond_mode not in ("batched", "unrolled"):
         raise ValueError(f"unknown cond_mode {cond_mode!r}")
     if cond_mode == "batched" and config.frames_per_block > 1:
@@ -939,34 +699,35 @@ def make_channels_step_hybrid(config: PipelineConfig, params: Params, n_channels
             "default cond_mode='unrolled' for multi-frame blocks")
     if demod_mode not in ("per-channel", "stacked"):
         raise ValueError(f"unknown demod_mode {demod_mode!r}")
-    return _ChannelsStep(config, params, n_channels, device, shared_ring=True,
-                         stacked_demod=demod_mode == "stacked" and params.resampler != "fused")
+    return ChannelsStep(config, params, n_channels, device, cond_mode=cond_mode,
+                        stacked_demod=demod_mode == "stacked" and params.resampler != "fused")
 
 
 def make_channels_step_unrolled(config: PipelineConfig, params: Params, n_channels: int,
-                                device="cuda"):
+                                device="cuda") -> ChannelsStep:
     """The JAX package's unrolled step (the single-channel step repeated over
-    the channels' rows): here the hybrid step with per-channel ring writes."""
-    return _ChannelsStep(config, params, n_channels, device)
+    the channels' rows): the bodies per channel, no stacked demod."""
+    return ChannelsStep(config, params, n_channels, device)
 
 
 def make_channels_step(config: PipelineConfig, params: Params, n_channels: int = 0,
-                       device="cuda"):
-    """The JAX package's gated multi-channel step: here the hybrid step with
-    per-channel ring writes. Keeps the reference's one-frame-per-block
-    limit. n_channels=0 takes the count from raws, as the reference's vmap
-    does."""
+                       device="cuda") -> ChannelsStep:
+    """The JAX package's gated multi-channel step: the bodies once over the
+    channel axis, committed per channel (its any() gate is a select too).
+    Keeps the reference's one-frame-per-block limit. n_channels=0 takes the
+    count from raws, as the reference's vmap does."""
     if config.frames_per_block > 1:
         raise ValueError(
             "make_channels_step supports one frame per block; use "
             "make_channels_step_hybrid/unrolled for multi-frame blocks")
-    return _ChannelsStep(config, params, n_channels or None, device)
+    return ChannelsStep(config, params, n_channels or None, device, cond_mode="batched")
 
 
-def make_multi_step(config: PipelineConfig, params: Params, device="cuda"):
+def make_multi_step(config: PipelineConfig, params: Params, device="cuda") -> ChannelsStep:
     """The JAX package's vmap(step) over a channel axis, the count taken
-    from raws: here the hybrid step with per-channel ring writes."""
-    return _ChannelsStep(config, params, None, device)
+    from raws: every body once over the channel axis, committed per
+    channel, at any frames per block (a vmap of the step's emit slots)."""
+    return ChannelsStep(config, params, None, device, cond_mode="batched")
 
 
 def make_scan_runner(config: PipelineConfig, params: Params, n_blocks: int, device="cuda"):

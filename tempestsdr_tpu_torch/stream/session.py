@@ -77,14 +77,20 @@ def resolve_batch_blocks(config: PipelineConfig, batch_blocks,
     return max(int(batch_blocks), 1)
 
 
-def _runner_for(config: PipelineConfig, params: Params, batch_blocks: int, device) -> BlockRunner:
-    """The cached runner of this key, built and cached on first use."""
-    key = (config, params, int(batch_blocks), device)
+def _cached_runner(key, make):
+    """The cached runner of this key, made with make() and cached on first
+    use (MultiSession's channel runners share the cache)."""
     with _WARM_LOCK:
         runner = _WARM_STEPS.get(key)
         if runner is None:
-            runner = _WARM_STEPS[key] = BlockRunner(config, params, batch_blocks, device)
+            runner = _WARM_STEPS[key] = make()
     return runner
+
+
+def _runner_for(config: PipelineConfig, params: Params, batch_blocks: int, device) -> BlockRunner:
+    """The cached runner of this key, built and cached on first use."""
+    return _cached_runner((config, params, int(batch_blocks), device),
+                          lambda: BlockRunner(config, params, batch_blocks, device))
 
 
 def warm_compile_step(config: PipelineConfig, params: Params, *,

@@ -1,7 +1,10 @@
 """The port's channel steps (tempestsdr_tpu_torch.stream.pipeline:
 make_channels_step_hybrid, _unrolled, make_channels_step, make_multi_step),
-make_step(batched=True), make_scan_runner and parallel.stack_states against
-the JAX package's on the CPU, block by block, at the JAX tests' sizes (SR
+the channel runner (stream.graph.ChannelRunner), make_step(batched=True),
+make_scan_runner and parallel.stack_states against the JAX package's on the
+CPU, block by block; every channel form run with every host read made to
+raise (tests/torch_host_guard.py), and cond_mode="batched" against
+"unrolled". At the JAX tests' sizes (SR
 1e6, 100 lines, block 8192, C = 3; tests/test_parallel.py:427-432): integer
 outputs and carries exactly, frames within FRAME_ATOL/FRAME_RTOL, plots
 within AC_RTOL of their peak. Where a JAX step reaches a Pallas kernel it
@@ -30,6 +33,9 @@ from tempestsdr_tpu_torch.stream import init_state, make_step
 from tempestsdr_tpu_torch.stream import pipeline as tpipe
 from tempestsdr_tpu_torch.stream.pipeline import StepControls
 from tempestsdr_tpu_torch.stream.state import state_leaves
+
+from torch_host_guard import CountOps, no_host_reads
+from test_torch_device_step import one_torch_thread  # noqa: F401 (autouse)
 
 SR, LINES, TWIDTH, REFRESH = 1e6, 100, 200, 50.0
 C = 3
@@ -329,66 +335,154 @@ def test_stack_states_rows_own_their_memory():
         assert not (x[1] == 7).any()
 
 
-def _count_host_reads(monkeypatch):
-    """Every way a tensor reaches the host, appended by name to the list
-    returned."""
-    calls = []
-    for name in ("tolist", "item", "cpu", "numpy", "__bool__", "__int__", "__float__"):
-        orig = getattr(torch.Tensor, name)
-
-        def counted(self, *a, _orig=orig, _name=name, **k):
-            calls.append(_name)
-            return _orig(self, *a, **k)
-
-        monkeypatch.setattr(torch.Tensor, name, counted)
-    return calls
+def _ctl(dropped, motionblur=0.3):
+    """Per-channel controls as [C] tensors, made before a guarded block (a
+    tensor made from host values is a host -> device copy on a card, which
+    the guard refuses, as a graph capture does)."""
+    return StepControls(torch.tensor(dropped, dtype=torch.int64), torch.zeros(C, dtype=torch.int32),
+                        torch.full((C,), motionblur))
 
 
-def test_hybrid_fetches_once_per_block(monkeypatch):
-    """The hybrid step reads the card once per block for all channels (one
-    .tolist() of the [C, 5] stack), on blocks with frames, rounds, a drop and
-    the shared and per-channel ring writes alike."""
-    _, tcfg = _configs()
-    step = tpipe.make_channels_step_hybrid(tcfg, Params(), C, device="cpu")
-    states = stack_states(tcfg, C, device="cpu")
-    calls = _count_host_reads(monkeypatch)
-    writes = []
-    real_write = step.step.write_ring
-    monkeypatch.setattr(step.step, "write_ring",
-                        lambda buf, *a: (writes.append(buf.dim()), real_write(buf, *a)))
-    raws = [torch.from_numpy(r) for r in _blocks(20, 8192, 50)]
+def hold_guarded_against_jax(jstep, tstep, blocks, drop_at=5):
+    """Every block of the port's channel step run with every host read
+    made to raise (tests/torch_host_guard.py), channel 1 dropping samples
+    at drop_at; the integer outputs equal the JAX step's, and from the drop
+    on every channel's autocorrelation ring equals the JAX ring row by row.
+    Returns the frames and rounds seen."""
+    jcfg, tcfg = _configs()
+    jstates, tstates = j_stack_states(jcfg, C), stack_states(tcfg, C, device="cpu")
     frames = rounds = 0
-    for b, raw in enumerate(raws):
-        calls.clear()
-        states, out = step(states, raw, StepControls(_drops(b, 5), 0, 0.3))
-        assert calls == ["tolist"], (b, calls)
-        frames += sum(any(h.frame_valid) for h in step.last)
-        rounds += sum(h.round_done for h in step.last)
-    assert frames >= 3 * C and rounds > 0
-    # the shared 2-D ring write in step, per-channel writes after the drop
-    assert 2 in writes and writes.count(1) >= C - 1
+    for b, raws in enumerate(blocks):
+        dropped = _drops(b, drop_at)
+        ctl, raw = _ctl(dropped), torch.from_numpy(raws)
+        with no_host_reads():
+            tstates, out = tstep(tstates, raw, ctl)
+        jstates, jo = jstep(jstates, jnp.asarray(raws),
+                            JControls(jnp.asarray(dropped, jnp.int64), jnp.zeros((C,), jnp.int32),
+                                      jnp.full((C,), 0.3, jnp.float32)))
+        for f in EXACT:
+            np.testing.assert_array_equal(_np(getattr(out, f)), np.asarray(getattr(jo, f)),
+                                          err_msg=f"block {b} {f}")
+        if b >= drop_at:
+            for c in range(C):
+                np.testing.assert_array_equal(_np(tstates.ac_buf[c]), np.asarray(jstates.ac_buf[c]),
+                                              err_msg=f"block {b} ring {c}")
+        frames += int(out.frame_valid.sum())
+        rounds += int(out.ac_plot_valid.sum())
+    return frames, rounds
+
+
+def test_hybrid_fetches_once_per_block(interpret_pallas):
+    """The hybrid step reads nothing to the host inside a block (what the
+    CUDA-graph capture of MultiSession's block needs), in both cond modes,
+    both demod modes and with resampler="fused" (K2 per channel), on blocks
+    with frames, rounds and a drop that desynchronises channel 1's ring
+    fill (the 2-D ring write at per-channel offsets); the ring after the
+    drop equals the JAX ring row by row."""
+    jcfg, tcfg = _configs()
+    blocks = _blocks(20, 8192, 50)
+    for kw, fields in ((dict(cond_mode="unrolled"), {}), (dict(cond_mode="batched"), {}),
+                       (dict(demod_mode="stacked"), {}),
+                       (dict(cond_mode="batched", demod_mode="stacked"), {}),
+                       ({}, dict(resampler="fused"))):
+        jstep = jax.jit(jpipe.make_channels_step_hybrid(jcfg, JParams(**fields), C, **kw))
+        tstep = tpipe.make_channels_step_hybrid(tcfg, Params(**fields), C, device="cpu", **kw)
+        frames, rounds = hold_guarded_against_jax(jstep, tstep, blocks)
+        assert frames >= 3 * C and rounds > 0, (kw, fields)
 
 
 @pytest.mark.parametrize("form", ["unrolled", "gated", "multi"])
-def test_channel_forms_fetch_once_per_block(monkeypatch, form):
-    """The unrolled, gated and multi forms are the hybrid step with
-    per-channel ring writes: one host read a block for all channels, a drop
-    included, and no 2-D ring write."""
-    _, tcfg = _configs()
+def test_channel_forms_fetch_once_per_block(form):
+    """The unrolled (the bodies per channel), gated and multi (the bodies
+    once over the channel axis) forms read nothing to the host inside a
+    block, a drop included, and their rings equal the JAX ones."""
+    jcfg, tcfg = _configs()
     step = dict(unrolled=lambda: tpipe.make_channels_step_unrolled(tcfg, Params(), C, "cpu"),
                 gated=lambda: tpipe.make_channels_step(tcfg, Params(), C, device="cpu"),
                 multi=lambda: tpipe.make_multi_step(tcfg, Params(), device="cpu"))[form]()
-    states = stack_states(tcfg, C, device="cpu")
-    calls = _count_host_reads(monkeypatch)
-    writes = []
-    real_write = step.step.write_ring
-    monkeypatch.setattr(step.step, "write_ring",
-                        lambda buf, *a: (writes.append(buf.dim()), real_write(buf, *a)))
-    for b, raw in enumerate(_blocks(12, 8192, 50)):
-        calls.clear()
-        states, _ = step(states, torch.from_numpy(raw), StepControls(_drops(b, 5), 0, 0.3))
-        assert calls == ["tolist"], (b, calls)
-    assert writes and set(writes) == {1}
+    jstep = dict(unrolled=lambda: jpipe.make_channels_step_unrolled(jcfg, JParams(), C),
+                 gated=lambda: jpipe.make_channels_step(jcfg, JParams(), C),
+                 multi=lambda: jpipe.make_multi_step(jcfg, JParams()))[form]()
+    assert step.cond_mode == ("unrolled" if form == "unrolled" else "batched")
+    frames, rounds = hold_guarded_against_jax(jax.jit(jstep), step, _blocks(12, 8192, 50))
+    assert frames >= 2 * C and rounds > 0
+
+
+@pytest.mark.parametrize("fields", [{}, dict(autoshift=True),
+                                    dict(debug_markers=True, autogain_after_proc=True),
+                                    dict(lowpass_before_sync=True, fast_sync=True)],
+                         ids=["default", "autoshift", "markers-autogain-after", "lowpass-first"])
+def test_batched_bodies_equal_unrolled_with_fewer_operations(fields):
+    """cond_mode="batched" runs the round and emit bodies once over the
+    channel axis: at one frame per block, every output and state leaf equals
+    cond_mode="unrolled"'s bit for bit (a drop on channel 1 included), and
+    a block dispatches fewer operations at C = 3."""
+    _, tcfg = _configs()
+    assert tcfg.frames_per_block == 1
+    steps = [tpipe.make_channels_step_hybrid(tcfg, Params(**fields), C, cond_mode=m, device="cpu")
+             for m in ("batched", "unrolled")]
+    states = [stack_states(tcfg, C, device="cpu") for _ in steps]
+    ops = [0, 0]
+    frames = rounds = 0
+    for b, raws in enumerate(_blocks(14, 8192, 20)):
+        outs = []
+        for i, step in enumerate(steps):
+            with CountOps() as count:
+                states[i], out = step(states[i], torch.from_numpy(raws), _ctl(_drops(b, 5)))
+            ops[i] += count.n
+            outs.append(out)
+        for name, a, b2 in zip(tpipe.StepOutputs._fields, *outs):
+            assert a.dtype == b2.dtype and torch.equal(a, b2), (b, name)
+        for a, b2 in zip(state_leaves(states[0]), state_leaves(states[1])):
+            assert torch.equal(a, b2), b
+        frames += int(outs[0].frame_valid.sum())
+        rounds += int(outs[0].ac_plot_valid.sum())
+    assert frames >= 3 * C and rounds > 0
+    assert ops[0] < ops[1], ops
+    print(f"operations in 14 blocks, batched / unrolled: {ops[0]} / {ops[1]}")
+
+
+def test_channel_runner_matches_the_jax_multisession_step():
+    """The channel runner (MultiSession's: one block of C channels a call, a
+    graph replay on the card, the step eagerly here) against the JAX
+    MultiSession's jitted hybrid step (donated state) over 14 blocks, a drop
+    in channel 1; its packed values are the outputs'."""
+    from tempestsdr_tpu_torch.stream.graph import PACKED, ChannelRunner
+
+    jcfg, tcfg = _configs()
+    jstep = jax.jit(jpipe.make_channels_step_hybrid(jcfg, JParams(), C), donate_argnums=0)
+    runner = ChannelRunner(tcfg, Params(), C, "cpu")
+    packs = []
+
+    def tstep(states, raws, ctrl):
+        states, out, packed = runner.run(states, raws, np.array(ctrl, np.float64).T)
+        rows = packed.tolist()
+        for c, row in enumerate(rows):
+            vals = dict(zip(PACKED, row))
+            assert vals["ac_calls"] == int(out.ac_calls[c])
+            assert vals["ac_plot_valid"] == bool(out.ac_plot_valid[c])
+            assert vals["refreshrate"] == float(out.refreshrate[c])
+            assert row[len(PACKED)] == bool(out.frame_valid[c])
+        packs.append(packed.shape)
+        return states, out
+
+    seen = compare(jstep, tstep, j_stack_states(jcfg, C), stack_states(tcfg, C, device="cpu"),
+                   _blocks(14, 8192, 50), drop_at=5, motionblur=0.3)
+    assert seen["frames"] >= 3 * C and seen["rounds"] > 0
+    assert set(packs) == {(C, len(PACKED) + 1)}
+
+
+def test_sync_states_default_to_the_card(monkeypatch):
+    """SweetspotState.init and PLLState.init, public through ops, default to
+    the card as every entry point does: without CUDA they raise, and with
+    device="cpu" they make CPU tensors."""
+    from tempestsdr_tpu_torch.ops import PLLState, SweetspotState
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for init in (SweetspotState.init, PLLState.init):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init()
+        assert {x.device.type for x in init("cpu")} == {"cpu"}
 
 
 def test_channel_entry_points_default_to_the_card(monkeypatch):

@@ -10,7 +10,8 @@ BlockRunner and make_scan_runner, and the K == 4 scenarios):
   resampler choice (the JAX TPU kernels in Pallas interpret mode, the
   port's kernels as their plain versions): integers and carries exact,
   frames within the path's tolerance;
-- against the host-branching Step (pipeline.Step), bit for bit;
+- against the block runner's eager loop (stream.graph.BlockRunner at one
+  block a call), bit for bit;
 - K blocks through the runner against the JAX package's scan of the step,
   with drops in varied slots and the sync shift in slot 0;
 - with every way a block could read a tensor to the host made to raise:
@@ -32,8 +33,9 @@ from tempestsdr_tpu.stream.pipeline import StepControls as JControls
 
 from tempestsdr_tpu_torch.config import PipelineConfig
 from tempestsdr_tpu_torch.params import Params
-from tempestsdr_tpu_torch.stream import init_state, make_step
-from tempestsdr_tpu_torch.stream.pipeline import Step, StepControls
+from tempestsdr_tpu_torch.stream import StepOutputs, init_state, make_step
+from tempestsdr_tpu_torch.stream.graph import BlockRunner
+from tempestsdr_tpu_torch.stream.pipeline import StepControls
 
 SR, LINES, REFRESH, TWIDTH = 1e6, 100, 60.0, 160
 K1_BLOCK, K4_BLOCK = 8192, 49152  # frames_per_block 1 and 4 at 333 x 100
@@ -128,14 +130,15 @@ def _assert_same_outputs(a, b, where):
             assert x.dtype == y.dtype and torch.equal(x, y), (where, name)
 
 
-def hold_against_jax_and_host_step(k, name):
+def hold_against_jax_and_runner(k, name):
     """Block for block: the device step against the JAX step (integers,
     carries and sync/PLL state exact, frames within the path's tolerance,
-    plots within AC_RTOL of their peak) and against the host-branching Step
-    (every output and state leaf bit for bit), through drops, drop-skipped
-    blocks, sync shifts, rounds and emits. K == 4's scenarios run in
-    tests/test_torch_graph_runner.py (a file of its own, so the two share
-    the JAX compiles between two test workers)."""
+    plots within AC_RTOL of their peak) and against the block runner's
+    eager loop at one block a call (every output and state leaf bit for
+    bit), through drops, drop-skipped blocks, sync shifts, rounds and
+    emits. K == 4's scenarios run in tests/test_torch_graph_runner.py (a
+    file of its own, so the two share the JAX compiles between two test
+    workers)."""
     fields, atol = SCENARIOS[name]
     block, events, n_blocks = (K1_BLOCK, K1_EVENTS, 18) if k == 1 else (K4_BLOCK, K4_EVENTS, 6)
     jcfg, tcfg = _configs(block)
@@ -143,9 +146,9 @@ def hold_against_jax_and_host_step(k, name):
     fir = fields.get("fir_lowpass_taps", 0)
     jstep = jax.jit(j_make_step(jcfg, JParams(**fields)))
     dstep = make_step(tcfg, Params(**fields), device="cpu")
-    hstep = Step(tcfg, Params(**fields), "cpu")
+    runner = BlockRunner(tcfg, Params(**fields), 1, "cpu")
     js = j_init_state(jcfg, fir)
-    ds, hs = init_state(tcfg, fir, device="cpu"), init_state(tcfg, fir, device="cpu")
+    ds, rs = init_state(tcfg, fir, device="cpu"), init_state(tcfg, fir, device="cpu")
     seen = dict(frames=0, rounds=0, skipped=0)
     for b, raw in enumerate(_blocks(n_blocks, block)):
         dropped, sync = events.get(b, (0, 0))
@@ -153,9 +156,9 @@ def hold_against_jax_and_host_step(k, name):
                        JControls(jnp.int64(dropped), jnp.int32(sync), jnp.float32(0.3)))
         ctl = StepControls(dropped, sync, 0.3)
         ds, do = dstep(ds, torch.from_numpy(raw), ctl)
-        hs, ho = hstep(hs, torch.from_numpy(raw), ctl)
-        _assert_same_outputs(do, ho, b)
-        _assert_same_outputs(ds, hs, b)
+        rs, ro, _ = runner.run(rs, torch.from_numpy(raw)[None], [list(ctl)])
+        _assert_same_outputs(do, StepOutputs(*(x[0] for x in ro)), b)
+        _assert_same_outputs(ds, rs, b)
         for f in EXACT:
             np.testing.assert_array_equal(_np(getattr(do, f)), np.asarray(getattr(jo, f)),
                                           err_msg=f"block {b} {f}")
@@ -183,6 +186,6 @@ def hold_against_jax_and_host_step(k, name):
 
 @pytest.mark.parametrize("name", list(SCENARIOS))
 def test_device_step_matches_jax_and_the_host_step(interpret_pallas, name):
-    """hold_against_jax_and_host_step at K == 1, every scenario."""
-    hold_against_jax_and_host_step(1, name)
+    """hold_against_jax_and_runner at K == 1, every scenario."""
+    hold_against_jax_and_runner(1, name)
 

@@ -4,14 +4,11 @@ and Session's batch path on the CPU, and the device step at K == 4 and with
 every host read made to raise; helpers and scenarios in
 tests/test_torch_device_step.py."""
 
-import contextlib
-
 import numpy as np
 import pytest
 import torch
 import jax
 import jax.numpy as jnp
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from tempestsdr_tpu.params import Params as JParams
 from tempestsdr_tpu.stream import init_state as j_init_state
@@ -26,6 +23,7 @@ from tempestsdr_tpu_torch.stream.graph import PACKED, BlockRunner, host_controls
 from tempestsdr_tpu_torch.stream.pipeline import StepControls
 from tempestsdr_tpu_torch.stream.state import state_leaves
 
+from torch_host_guard import no_host_reads
 from test_torch_device_step import (  # noqa: F401 (the fixtures)
     CARRIES,
     EXACT,
@@ -43,7 +41,7 @@ from test_torch_device_step import (  # noqa: F401 (the fixtures)
     _blocks,
     _configs,
     _np,
-    hold_against_jax_and_host_step,
+    hold_against_jax_and_runner,
     interpret_pallas,
     one_torch_thread,
 )
@@ -51,8 +49,8 @@ from test_torch_device_step import (  # noqa: F401 (the fixtures)
 
 @pytest.mark.parametrize("name", K4_SCENARIOS)
 def test_device_step_matches_jax_and_the_host_step_k4(interpret_pallas, name):
-    """hold_against_jax_and_host_step at K == 4 (the multi-emit slots)."""
-    hold_against_jax_and_host_step(4, name)
+    """hold_against_jax_and_runner at K == 4 (the multi-emit slots)."""
+    hold_against_jax_and_runner(4, name)
 
 
 def test_runner_matches_the_jax_scan():
@@ -111,46 +109,8 @@ def test_make_scan_runner_matches_jax_with_a_drop_every_block():
 
 # ---- no host read inside a block ---------------------------------------------
 
-HOST_READS = ("item", "tolist", "__bool__", "__int__", "__index__", "__float__")
-# aten ops that read a tensor on the host (on a card: a synchronizing copy),
-# reached from C++ as well, e.g. indexing by a 0-d tensor; and lift_fresh, a
-# tensor made from host data (torch.tensor, or a Python value written into a
-# tensor: on a card a host -> device copy, which a graph cannot capture)
-HOST_OPS = {"_local_scalar_dense", "nonzero", "masked_select", "is_nonzero", "equal",
-            "allclose", "unique_dim", "_unique2", "unique_consecutive", "lift_fresh",
-            "lift_fresh_copy"}
-
-
-MASKED = {"index", "index_put", "index_put_", "_index_put_impl_"}  # a bool index is a nonzero
-
-
-class _NoHostOps(TorchDispatchMode):
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        name = func.overloadpacket.__name__
-        if name in HOST_OPS:
-            raise AssertionError(f"host read: aten.{name}")
-        if name in MASKED and any(isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8)
-                                  for i in args[1]):
-            raise AssertionError(f"host read: aten.{name} with a mask")
-        return func(*args, **(kwargs or {}))
-
-
-@contextlib.contextmanager
-def _no_host_reads(monkeypatch):
-    """Every Tensor method that reads a value to the host raises, and so does
-    every aten op that does, for the enclosed code."""
-    with monkeypatch.context() as m:
-        for name in HOST_READS:
-            def refuse(self, *a, _name=name, **k):
-                raise AssertionError(f"host read: Tensor.{_name}")
-
-            m.setattr(torch.Tensor, name, refuse)
-        with _NoHostOps():
-            yield
-
-
 @pytest.mark.parametrize("k,name", [(1, n) for n in SCENARIOS] + [(4, n) for n in K4_SCENARIOS])
-def test_device_step_reads_nothing_to_the_host(monkeypatch, k, name):
+def test_device_step_reads_nothing_to_the_host(k, name):
     """One device step per block over blocks with a drop, the blocks it
     skips, a sync shift, an autocorrelation round and emits, then one runner
     batch, each with every host read made to raise; the outputs are those
@@ -169,7 +129,7 @@ def test_device_step_reads_nothing_to_the_host(monkeypatch, k, name):
     rounds = 0
     for b, raw in enumerate(raws):
         ctl = StepControls(*events.get(b, (0, 0)), 0.4)
-        with _no_host_reads(monkeypatch):
+        with no_host_reads():
             guarded, out = step(guarded, raw, ctl)
         free, want = step(free, raw, ctl)
         _assert_same_outputs(out, want, b)
@@ -177,13 +137,13 @@ def test_device_step_reads_nothing_to_the_host(monkeypatch, k, name):
     assert rounds >= 1
     runner = BlockRunner(tcfg, params, 2, "cpu")
     controls = torch.tensor([[7.0, 3.0, 0.4], [0.0, 0.0, 0.4]], dtype=torch.float64)
-    with _no_host_reads(monkeypatch):
+    with no_host_reads():
         guarded, out, packed = runner.run(guarded, torch.stack(raws[:2]), controls)
     assert packed.shape == (2, len(PACKED) + k)
     assert len(state_leaves(guarded)) == len(state_leaves(free))
 
 
-def test_the_guard_catches_host_reads(monkeypatch):
+def test_the_guard_catches_host_reads():
     """The guard above refuses each kind of host read it names, and a
     Python value written into a tensor."""
     t = torch.arange(4)
@@ -191,7 +151,7 @@ def test_the_guard_catches_host_reads(monkeypatch):
                  lambda: int(t[1]), lambda: float(t[1]), lambda: range(t[2]),
                  lambda: t[torch.tensor(1)], lambda: t[t > 1], lambda: t.__setitem__(0, 5)):
         with pytest.raises(AssertionError, match="host read"):
-            with _no_host_reads(monkeypatch):
+            with no_host_reads():
                 read()
 
 

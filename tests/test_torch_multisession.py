@@ -23,6 +23,7 @@ from tempestsdr_tpu_torch.sources.synthetic import SyntheticSource, render_test_
 from tempestsdr_tpu_torch.stream import MultiSession
 
 from test_examples import EX, run_example
+from test_torch_device_step import one_torch_thread  # noqa: F401 (autouse)
 
 SR, LINES, TWIDTH, REFRESH = 1e6, 100, 200, 50.0
 C = 3
@@ -127,9 +128,12 @@ class _Droppy(Source):
 
 
 def test_multisession_fetches_and_drops(monkeypatch):
-    """Per block one fetch (the step's [C, 5] .tolist()); on a block where
-    a channel completed a frame, one download of the frame stack; on a block
-    where a round completed, one of the plots. Drops stay per channel."""
+    """Per block one packed fetch (one .tolist() of the runner's [C, PACKED
+    + K] values); on a block where a channel completed a frame, one
+    download of the valid frames; on a block where a round completed, one
+    of those channels' plots. Drops stay per channel."""
+    from tempestsdr_tpu_torch.stream.graph import PACKED, ChannelRunner
+
     cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192)
     got = {c: 0 for c in range(C)}
     n_plots = []
@@ -145,27 +149,28 @@ def test_multisession_fetches_and_drops(monkeypatch):
             return _orig(self, *a, **k)
 
         monkeypatch.setattr(torch.Tensor, name, counted)
-    step, marks, hosts = ms._step, [], []
-    real_call = type(step).__call__
+    marks, packs = [], []
+    real_run = ChannelRunner.run
 
     def spy(self, *a, **k):
         marks.append(len(calls))
-        out = real_call(self, *a, **k)
-        hosts.append(self.last)
+        out = real_run(self, *a, **k)
+        packs.append(out[2].clone())
         return out
 
-    monkeypatch.setattr(type(step), "__call__", spy)
+    monkeypatch.setattr(ChannelRunner, "run", spy)
     total = ms.run(max_blocks=20)
     marks.append(len(calls))
     monkeypatch.undo()
     assert ms.samples_dropped_total == [0, 5000, 0]
     assert sum(got.values()) == total == sum(ms.frames_total) and min(got.values()) >= 3
     assert n_plots and set(n_plots) == set(range(C))
+    assert len(packs) == 20
     emitting = rounds = 0
-    for b, host in enumerate(hosts):
+    for b, packed in enumerate(packs):
         block_calls = calls[marks[b]:marks[b + 1]]
-        emit = any(any(h.frame_valid) for h in host)
-        done = any(h.round_done for h in host)
+        emit = bool(packed[:, len(PACKED):].any())
+        done = bool(packed[:, PACKED.index("ac_plot_valid")].any())
         assert block_calls == ["tolist"] + ["cpu"] * (emit + done), (b, block_calls)
         emitting += emit
         rounds += done

@@ -199,7 +199,7 @@ def _strip_profile(n, start, width, seed, dtype=np.float64):
 def test_sweet_spot_exact(dtype):
     """Strip search: stripsize, dx and vx exact over a tracked sequence."""
     n = 400
-    js, ts = JSS.init(), TSS.init()
+    js, ts = JSS.init(), TSS.init("cpu")
     for i, (start, width) in enumerate([(300, 60), (303, 60), (310, 58), (2, 40), (395, 30)]):
         p = _strip_profile(n, start, width, i, dtype)
         js, jb, jstart = jops.find_the_sweet_spot(js, jnp.asarray(p), 20, 0.9)
@@ -216,7 +216,7 @@ def test_sweet_spot_exact(dtype):
 def test_framerate_pll_matches(enabled):
     """Lock flag exact, the f64 average and the f32 delta bit-equal, with
     the clamp to the static headroom."""
-    jp, tp = JPLL.init(), TPLL.init()
+    jp, tp = JPLL.init(), TPLL.init("cpu")
     for vx in [3, 3, -2, 0, 1, 400, 400, 400, 0, 0, -1]:
         jp = j_pll(jp, jnp.int32(vx), enabled=enabled, max_delta=0.002 * 50.0)
         tp = tops.framerate_pll(tp, torch.tensor(vx, dtype=torch.int32), enabled=enabled,

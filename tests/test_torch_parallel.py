@@ -138,6 +138,61 @@ def rank_grid(cfg, params, C, T, per_ch_blocks):
                                                           if isinstance(s, torch.Tensor)]))
 
 
+def _guard_ctl(dropped, n=None):
+    """Controls as tensors made before a guarded block: 0-d, or [n] per
+    local channel with the drop on channel 0."""
+    if n is None:
+        return StepControls(torch.tensor(dropped), torch.tensor(0, dtype=torch.int32),
+                            torch.tensor(0.3))
+    return StepControls(torch.tensor([dropped] + [0] * (n - 1)), torch.zeros(n, dtype=torch.int32),
+                        torch.full((n,), 0.3))
+
+
+def _same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def rank_guarded(cfg, params, blocks, per_ch_blocks, drop_at=9):
+    """The time-sharded step over all WORLD ranks of one row, then the grid
+    step (2 rows of WORLD // 2), each block run twice: once with every host
+    read made to raise (tests/torch_host_guard.py; the mesh's collectives
+    run inside the guard) and once free, on states of their own. Returns
+    whether every output and state leaf agreed, and the frames and rounds
+    the guarded runs saw."""
+    from torch_host_guard import no_host_reads
+
+    from tempestsdr_tpu_torch.stream.state import state_leaves
+
+    got = dict(same=True, frames=0, rounds=0)
+    mesh = make_mesh(1, WORLD, device="cpu")
+    step = make_time_sharded_step(cfg, params, mesh)
+    S, t = cfg.block_samples // WORLD, mesh.time_index
+    guarded, free = (init_state(cfg, device="cpu") for _ in range(2))
+    for b, blk in enumerate(blocks):
+        raw = torch.from_numpy(blk[2 * S * t:2 * S * (t + 1)])
+        ctl = _guard_ctl(1000 if b == drop_at else 0)
+        with no_host_reads():
+            guarded, out = step(guarded, raw, ctl)
+        free, want = step(free, raw, ctl)
+        got["same"] &= _same(out, want) and _same(state_leaves(guarded), state_leaves(free))
+        got["frames"] += int(out.frame_valid)
+        got["rounds"] += int(out.ac_plot_valid)
+    mesh = make_mesh(2, WORLD // 2, device="cpu")
+    step = make_grid_step(cfg, params, mesh)
+    (r, t), S = mesh.coords, cfg.block_samples // (WORLD // 2)
+    guarded, free = (stack_states(cfg, 1, device="cpu") for _ in range(2))
+    for b, blk in enumerate(per_ch_blocks[r]):
+        raws = torch.from_numpy(blk[None, 2 * S * t:2 * S * (t + 1)])
+        ctl = _guard_ctl(1000 if b == drop_at else 0, 1)
+        with no_host_reads():
+            guarded, out = step(guarded, raws, ctl)
+        free, want = step(free, raws, ctl)
+        got["same"] &= _same(out, want) and _same(state_leaves(guarded), state_leaves(free))
+        got["frames"] += int(out.frame_valid.sum())
+        got["rounds"] += int(out.ac_plot_valid.sum())
+    return got
+
+
 def rank_mesh_api():
     """The mesh's validation and its collectives, on every rank."""
     rank = torch.distributed.get_rank()
@@ -169,6 +224,17 @@ def rank_fails():
     if torch.distributed.get_rank() == 1:
         raise ArithmeticError("rank 1 fails on purpose")
     return "ok"
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test with one torch thread in this process, as in
+    tests/test_torch_device_step.py (the ranks take their own count from
+    RankPool)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -373,6 +439,27 @@ def test_channel_dp_multiframe_matches_per_channel(pool):
         assert len(mine) == len(got[c]) >= 6
         for a, b2 in zip(got[c], mine):
             np.testing.assert_allclose(a, b2, rtol=CH_RTOL, atol=CH_ATOL)
+
+
+def test_sharded_steps_read_nothing_to_the_host(pool):
+    """The time-sharded step (T = 8) and the grid step (2 x 4) on gloo CPU
+    ranks, every block with every host read made to raise outside the mesh's
+    collectives (a drop, rounds and frames among them), equal bit for bit to
+    the same blocks run unguarded; and make_channel_step, this rank's device
+    channel step, passes its cond_mode through."""
+    from types import SimpleNamespace
+
+    cfg = config(autocorr=True)
+    params = Params(framerate_pll=False)
+    blocks = gen_blocks(14, 8192)  # a round at block 6, the drop at 9
+    per_ch = [gen_blocks(14, 8192, seed=s) for s in (6, 7)]
+    res = pool.run(rank_guarded, cfg, params, blocks, per_ch)
+    assert len(res) == WORLD and all(r["same"] for r in res)
+    assert all(r["frames"] > 0 and r["rounds"] > 0 for r in res)
+    mesh = SimpleNamespace(shape={"ch": 2, "time": 1}, device=torch.device("cpu"))
+    for mode in ("batched", "unrolled"):
+        step = make_channel_step(cfg, params, mesh, 4, cond_mode=mode)
+        assert (step.n_channels, step.cond_mode) == (2, mode)
 
 
 def test_channel_step_rejects_uneven_channels():
