@@ -40,6 +40,20 @@
    batch, K1 once a block), timed in turns, its busy share at batch 8, the
    one-block replay floor, the fused, pallas and pallas_windows resamplers
    at batch 4 and 8 MS/s (K == 4) at batch 4 with a drop and a sync shift;
+   then the branch nodes (phase 5b): every runner captures each branch of
+   the step (the FFT round, each emit slot, the sync-skip shift; per
+   channel, or gated on any() over the channels) as CUDA-graph IF nodes,
+   so a replay runs only the taken bodies; the block runner at 64 MS/s
+   (K = 1, 4, 8, 24 blocks) and 8 MS/s (K = 4, a drop in slot 2, a sync
+   shift in slot 0), the channel runner at config 5 (unrolled), batched at
+   64 MS/s (C = 4) and make_multi_step's gated form at 8 MS/s (C = 3,
+   K == 4), each against the eager select-form step bit for bit in every
+   output and state leaf, the FFT kernels once per completed round and the
+   post-process once per emitted frame by kernel name against the packed
+   flags, with each graph's parent, IF and body nodes, its capture's
+   memory, and device ms a block and busy share under the profiler. Every
+   run under the profiler in this script (card_counts, profile_trace) is
+   held to the eager step: its outputs, or its frames, bit for bit;
 6. drives the front door: a uint8 capture written to a temporary file goes
    through tempestsdr_tpu_torch.cli.main (rawfile source, 64 MS/s, frames
    and plots saved, K1 once per block) and through TSDR with
@@ -58,22 +72,24 @@
 9. runs multi-target on the card at config 5's geometry (8 channels at
    16 MS/s, block 786432, K == 4), every channel step through a
    ChannelRunner graph (one replay a block) unless said: the eager channel
-   step for one block under set_sync_debug_mode("error"); the graph's node
-   count, memory and device operations a replay, and the graph against the
-   eager step over 6 blocks (a drop on channel 1; every output bit for bit;
-   K1 8 times a block by profiler count); stacked demod against per-channel
-   demod (eager, bit for bit); the fused graph (K2 8 times a block) against
-   the K1 graph; the K1 graph against each channel's single-channel step
-   with the plain strided resampler, and at 8 MS/s with 3 channels against
-   the channel step on the CPU; cond_mode="batched" against "unrolled" at
-   the 64 MS/s geometry with 4 channels (and their node counts);
-   MultiSession over 8 uint8 sources of their own line widths for 12
-   blocks (frames and plots on every channel, no two channels alike, first
-   frames against their rasters; ms a block and the aggregate MS/s against
-   the 128 MS/s of real time beside PR 9's), then 4 blocks with K1 counted
-   (8 a block); its per-block host split of upload and replay, the packed
-   fetch and the downloads; its busy share under profile_trace; and a
-   simlive source (native ring) through Session;
+   step for one block under set_sync_debug_mode("error"); the graph (its
+   branch nodes' line: census, memory, bodies counted, device operations a
+   replay) against the eager step over 6 blocks (a drop on channel 1;
+   every output bit for bit); stacked demod against per-channel demod
+   (eager, bit for bit); the fused graph (K2 8 times a block) against the
+   K1 graph, and each against its eager step; the K1 graph against each
+   channel's single-channel step with the plain strided resampler, and at
+   8 MS/s with 3 channels against the channel step on the CPU;
+   cond_mode="batched" against "unrolled" at the 64 MS/s geometry with 4
+   channels (and their censuses); MultiSession over 8 uint8 sources of
+   their own line widths for 12 blocks (frames and plots on every channel,
+   no two channels alike, first frames against their rasters; ms a block
+   and the aggregate MS/s against the 128 MS/s of real time beside the
+   select form's), then 4 blocks under the profiler (K1 8 times a block,
+   every frame the eager step's, the branch bodies by kernel name); its
+   per-block host split of upload and replay, the packed fetch and the
+   downloads; its busy share under profile_trace; and a simlive source
+   (native ring) through Session;
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -82,6 +98,7 @@ before printing any result.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -101,7 +118,7 @@ if not torch.cuda.is_available():
 
 from tempestsdr_tpu_torch import TSDR, cli, kernels, native, superband  # noqa: E402
 from tempestsdr_tpu_torch.config import PIXEL_SPECIAL_VALUE_G, PipelineConfig  # noqa: E402
-from tempestsdr_tpu_torch.kernels import build  # noqa: E402
+from tempestsdr_tpu_torch.kernels import build, graph_cond  # noqa: E402
 from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
     box_resample_pallas_cuda,
     box_resample_pallas_windows_cuda,
@@ -142,12 +159,14 @@ from tempestsdr_tpu_torch.sources.base import Source, SourceBlock, load_source  
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
 from tempestsdr_tpu_torch.stream import MultiSession  # noqa: E402
 from tempestsdr_tpu_torch.stream.pipeline import (  # noqa: E402
+    ChannelsStep,
     StepControls,
     channel_controls_on,
     make_channels_step_hybrid,
     make_step,
 )
 from tempestsdr_tpu_torch.stream import multisession as multisession_mod  # noqa: E402
+from tempestsdr_tpu_torch.stream import pipeline as pipeline_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream import session as session_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     Session,
@@ -563,7 +582,7 @@ def run_session(name, cfg, n_blocks, params=Params(), kernels_run=("box_resample
     session's graph): once timed, then once with its launches on the card
     counted (card_counts; the profiler's own cost makes that run slower):
     each of `kernels_run` must have launched once per block and no other
-    kernel at all."""
+    kernel at all, and its frames are the eager step's."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     warm_up(cfg, raster, params)
     src = ReplayU8(cfg, raster, n_blocks)
@@ -580,17 +599,25 @@ def run_session(name, cfg, n_blocks, params=Params(), kernels_run=("box_resample
     cc = float(np.corrcoef(frames[0].ravel(), expected_frame(cfg, raster).ravel())[0, 1])
     assert cc > CORR_MIN, f"{name}: frame correlation {cc}"
     assert plots, f"{name}: no autocorrelation plots"
-    counted = Session(cfg, params, src, device=DEV)
+    counted_frames = []
+    counted = Session(cfg, params, src, SessionCallbacks(on_frame=counted_frames.append),
+                      device=DEV)
     with card_counts() as launches:
         t1 = time.perf_counter()
         counted.run(max_blocks=n_blocks)
         torch.cuda.synchronize()
         dt_counted = time.perf_counter() - t1
     assert launches == {k: n_blocks if k in kernels_run else 0 for k in launches}, (name, launches)
+    held_frames(counted_frames, eager_frames(cfg, params, src.blocks), f"{name} under the profiler")
+    # the branch nodes' set kernel, in the parent graph: one a branch a block
+    # (the sync-skip shift, the round, each emit slot)
+    set_launches = launches.named(SET_KERNEL)
+    assert set_launches == n_blocks * (2 + cfg.frames_per_block), (name, set_launches)
     row = dict(path=name, resampler=params.resampler, blocks=n_blocks, frames=len(frames),
                plots=len(plots), corr=cc, per_block_ms=dt / n_blocks * 1e3,
                msps=cfg.block_samples * n_blocks / dt / 1e6,
-               per_block_ms_under_profiler=dt_counted / n_blocks * 1e3, launches=launches)
+               per_block_ms_under_profiler=dt_counted / n_blocks * 1e3, launches=launches,
+               set_kernel=dict(launches=set_launches, ms=launches.ms_each(SET_KERNEL)))
     print("e2e " + json.dumps(row))
     return row
 
@@ -668,10 +695,12 @@ def check_against_cpu(cfg, n_blocks=3):
 def profile_steady(cfg, n_blocks=6):
     """The port's profile_trace (torch.profiler) over steady 64 MS/s blocks:
     device busy share (sum of kernel and copy time over wall time), the top
-    device consumers, and the Chrome trace it writes."""
+    device consumers, and the Chrome trace it writes; the frames the eager
+    step's."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     warm_up(cfg, raster, Params())
-    sess = Session(cfg, Params(), ReplayU8(cfg, raster, n_blocks), device=DEV)
+    src, frames = ReplayU8(cfg, raster, n_blocks), []
+    sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append), device=DEV)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
         with profile_trace(logdir) as prof:
@@ -681,6 +710,7 @@ def profile_steady(cfg, n_blocks=6):
             wall_ms = (time.perf_counter() - t0) * 1e3
         (trace,) = os.listdir(logdir)
         trace_bytes = os.path.getsize(os.path.join(logdir, trace))
+    held_frames(frames, eager_frames(cfg, Params(), src.blocks), "profiled steady blocks")
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     assert events and trace_bytes > 0, "profile_trace recorded no device activity"
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -717,10 +747,12 @@ def only(launches, **want):
 
 def write_capture(cfg, path, n_blocks):
     """A uint8 capture of the synthetic emanation at cfg's rate: the blocks
-    a ReplayU8 would stream, as a raw file for the rawfile source."""
+    a ReplayU8 would stream, as a raw file for the rawfile source; returns
+    the raster and the blocks."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
-    np.concatenate(ReplayU8(cfg, raster, n_blocks).blocks).tofile(path)
-    return raster
+    blocks = ReplayU8(cfg, raster, n_blocks).blocks
+    np.concatenate(blocks).tofile(path)
+    return raster, blocks
 
 
 def run_cli(argv):
@@ -742,9 +774,10 @@ def run_cli(argv):
 
 def front_door(cfg, tmp, hand_built_ms):
     """Phase 6a: the 64 MS/s capture through the command line (default
-    Params: K1) and through TSDR with resampler="fused" (K2)."""
+    Params: K1) and through TSDR with resampler="fused" (K2), each run's
+    frames the eager step's."""
     path = os.path.join(tmp, "capture64.u8")
-    raster = write_capture(cfg, path, 12)
+    raster, capture = write_capture(cfg, path, 12)
     n_frames = 6
     # frame k completes in the block that brings the fold to k frames
     blocks = -(-n_frames * cfg.frame_pixels * cfg.samples_per_pixel // cfg.block_samples)
@@ -759,6 +792,10 @@ def front_door(cfg, tmp, hand_built_ms):
     assert any(line.startswith(f"done: {n_frames} frames") for line in log), log[-3:]
     saved = sorted(os.listdir(out))
     assert saved == [f"frame_{i:06d}.npy" for i in (1, 2, 4, 6)], saved
+    want = eager_frames(cfg, Params(), capture)
+    for i in (1, 2, 4, 6):  # frame_<i> is the i-th frame
+        held_frames([np.load(os.path.join(out, f"frame_{i:06d}.npy"))], want[i - 1:],
+                    f"cli frame {i}")
     first = np.load(os.path.join(out, saved[0]))
     assert first.shape == (cfg.height, cfg.width) and np.isfinite(first).all()
     cc = float(np.corrcoef(first.ravel(), expected_frame(cfg, raster).ravel())[0, 1])
@@ -786,6 +823,7 @@ def front_door(cfg, tmp, hand_built_ms):
         dt = time.perf_counter() - t0
     only(launches, fused_demod_resample_cuda=8)
     rx.close()
+    held_frames(frames, eager_frames(cfg, Params(resampler="fused"), capture[:8]), "TSDR fused")
     whole = int(8 * cfg.block_samples // (cfg.frame_pixels * cfg.samples_per_pixel))
     assert got == len(frames) >= whole and all(
         f.shape == (cfg.height, cfg.width) and np.isfinite(f).all() for f in frames)
@@ -801,7 +839,7 @@ def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
     height: the mode detected, the new geometry warmed on its thread while
     the first session streams, the restart, frames at the new shape."""
     path = os.path.join(tmp, "capture8.u8")
-    write_capture(cfg, path, 24)
+    _, capture = write_capture(cfg, path, 24)
     out = os.path.join(tmp, "frames8")
     with card_counts() as launches:
         log, dt = run_cli([
@@ -823,6 +861,15 @@ def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
     old = PipelineConfig(samplerate=cfg.samplerate, height=wrong_height,
                          refreshrate=cfg.refreshrate, block_samples=cfg.block_samples)
     assert shapes[0] == (wrong_height, old.width) and shapes[-1] == (cfg.height, cfg.width), shapes
+    # the first session's saved frames (the old geometry, from the capture's
+    # first block) are the eager step's; where in the capture the restarted
+    # session began is not known here, so its frames are held by shape only
+    want = eager_frames(old, Params(), capture)
+    for name in sorted(os.listdir(out)):
+        got = np.load(os.path.join(out, name))
+        if got.shape == (wrong_height, old.width):
+            i = int(name[len("frame_"):-len(".npy")])
+            held_frames([got], want[i - 1:], f"auto-resolution first session frame {i}")
     # the first session's blocks (until the warm thread stopped it), each
     # runner's warm-up block before its capture (the first session's, the
     # warm start's) and replayed block (the warm start's one), the restarted
@@ -837,7 +884,8 @@ def auto_resolution_round_trip(cfg, tmp, wrong_height=525):
 def batched_session(cfg, n_blocks=12):
     """Phase 7a: batch_blocks=4 against 1 on the same blocks: the same
     kernels in the same order (one graph replay a batch), so the frames are
-    equal bit for bit; K1 once a block on the card (profiler count)."""
+    equal bit for bit, and the eager step's; K1 once a block on the card
+    (profiler count)."""
     raster = render_test_pattern(cfg.height, cfg.width // 2)
     src_blocks = ReplayU8(cfg, raster, n_blocks).blocks
     runs = {}
@@ -859,6 +907,7 @@ def batched_session(cfg, n_blocks=12):
     assert len(f1) == len(f4) >= n_blocks * cfg.block_samples // (
         cfg.frame_pixels * cfg.samples_per_pixel) - 1
     assert all(np.array_equal(a, b) for a, b in zip(f1, f4)), "batch 4 frames differ from batch 1"
+    held_frames(f1, eager_frames(cfg, Params(), src_blocks), "batched session")
     print("batched session (64MS/s, in turns 1, 4, 4, 1, under the profiler): " + json.dumps(
         dict(blocks=n_blocks, frames=len(f1), per_block_ms_batch1=runs[1]["ms"],
              per_block_ms_batch4=runs[4]["ms"], frames_equal=True)))
@@ -910,7 +959,8 @@ def live_controls(cfg, tmp):
 
 def superresolution(cfg, native_rate=16e6):
     """Phase 7c: a native-rate source, Params(superresolution=True), the
-    pipeline at cfg (4x the native rate): one stitched cycle through K1.
+    pipeline at cfg (4x the native rate): one stitched cycle through K1,
+    its frames the eager step's over the same stitched stream.
     Then stitch_hops on the card against the CPU on shifted, noisy copies of
     a recorded hop: the alignment lags equal, the stitched stream within
     STITCH_TOL of its peak."""
@@ -939,6 +989,7 @@ def superresolution(cfg, native_rate=16e6):
     assert got == len(frames) >= 6 and all(
         f.shape == (cfg.height, cfg.width) and np.isfinite(f).all() for f in frames)
     assert frames[-1].std() > 0
+    held_frames(frames, superres_eager_frames(cfg, native_rate, src.blocks), "superresolution")
 
     rng = np.random.default_rng(12)
     f = np.concatenate(src.blocks[:-(-sb.n // cfg.block_samples)]).astype(np.float32)[:2 * sb.n]
@@ -971,6 +1022,30 @@ def superresolution(cfg, native_rate=16e6):
         stitch_rel_err_vs_cpu=err, lags=lags, peak_margin=margin,
         per_stitched_block_ms=dt / blocks * 1e3)))
     return sb.n
+
+
+def superres_eager_frames(cfg, native_rate, native_blocks):
+    """The frames of the eager device step over the stream a
+    superresolution Session stitches from the native blocks (its host loop:
+    hops gathered by SuperBandwidth, the stitched stream a block at a
+    time)."""
+    sb = superband.SuperBandwidth(native_rate, cfg.refreshrate, device=DEV)
+    step = make_step(cfg, Params(superresolution=True), device=DEV)
+    state, n = init_state(cfg, device=DEV), cfg.block_samples
+    carry, frames = np.empty(0, np.complex64), []
+    for blk in native_blocks:
+        f = session_mod._normalize_host(np.asarray(blk))
+        out = sb.feed((f[0::2] + 1j * f[1::2]).astype(np.complex64), 0)
+        if out is None:
+            continue
+        carry = np.concatenate([carry, out]) if carry.size else out
+        while carry.size >= n:
+            one, carry = carry[:n], carry[n:]
+            inter = np.empty(2 * n, np.float32)
+            inter[0::2], inter[1::2] = one.real, one.imag
+            state, o = step(state, torch.from_numpy(inter).to(DEV), StepControls())
+            frames += [fr for _, fr in _valid_frames(o)]
+    return frames
 
 
 def first_block(mode):
@@ -1085,16 +1160,29 @@ def hold_channels(name, steps, cfg, n_ch, blocks, tol, drop_channel=1, drop=3777
 class RunnerStep:
     """A ChannelRunner called as a channel step is (state, raws, controls)
     -> (state, outputs), for hold_channels: the controls as its [C, 3]
-    buffer, the outputs cloned out of the graph's."""
+    buffer, the outputs cloned out of the graph's and kept (`calls`, with
+    the raws and controls) for replays_held."""
 
     def __init__(self, runner):
         self.runner = runner
+        self.calls = []
 
     def __call__(self, state, raws, controls):
         n = self.runner.n_blocks
         ctl = np.stack([np.broadcast_to(np.asarray(v, np.float64), (n,)) for v in controls], 1)
         state, out, _ = self.runner.run(state, raws, ctl)
-        return state, StepOutputs(*(x.clone() for x in out))
+        out = StepOutputs(*(x.clone() for x in out))
+        self.calls.append((raws, ctl, out))
+        return state, out
+
+
+def replays_held(rstep, what):
+    """Every replay a RunnerStep made, from a fresh state, bit for bit the
+    eager step's on the same raws and controls."""
+    state = stack_states(rstep.runner.config, rstep.runner.n_blocks, device=DEV)
+    for b, (raws, ctl, out) in enumerate(rstep.calls):
+        state, want = rstep.runner.step(state, raws, StepControls(*ctl.T))
+        same_outputs(out, want, f"{what} block {b}")
 
 
 def captured(runner, raws):
@@ -1106,42 +1194,32 @@ def captured(runner, raws):
     return runner
 
 
-def graph_nodes(runner, dtype=torch.uint8):
-    """The node count of a runner's captured graph (cuGraphGetNodes on the
-    kept cudaGraph_t)."""
-    import ctypes
-
-    count = ctypes.c_size_t(0)
-    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
-        ctypes.c_void_p(runner._graphs[dtype].graph.raw_cuda_graph()), None, ctypes.byref(count))
-    assert rc == 0, f"cuGraphGetNodes returned {rc}"
-    return count.value
-
-
 def device_ops_per_replay(runner, raws, n=2):
     """Device operations (kernels, copies, fills) a replay runs, counted in
-    a profiler trace over n replays."""
-    from torch.profiler import ProfilerActivity, profile
-
+    a profiler trace over n replays of one block from a fresh state; each
+    replay's outputs held bit for bit to the eager channel step's."""
     state = stack_states(runner.config, runner.n_blocks, device=DEV)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    got = []
+    with card_counts() as trace:
         for _ in range(n):
-            state, _, _ = runner.run(state, raws, np.zeros((runner.n_blocks, 3)))
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA") / n
+            state, out, _ = runner.run(state, raws, np.zeros((runner.n_blocks, 3)))
+            got.append(StepOutputs(*(x.clone() for x in out)))
+    state_e = stack_states(runner.config, runner.n_blocks, device=DEV)
+    for i, out in enumerate(got):
+        state_e, want = runner.step(state_e, raws, StepControls())
+        same_outputs(out, want, f"profiled replay {i}")
+    return sum(trace.kernels.values()) / n
 
 
-PR9_CONFIG5 = dict(per_block_ms=[151.3, 262.7], aggregate_msps=[41.6, 23.9])  # PERF.md, PR 9:
-# MultiSession through the host-branching hybrid step on an NVIDIA H100 80GB HBM3 at 700 W
+SELECT_FORM_CONFIG5 = dict(per_block_ms=[65.2, 66.1], aggregate_msps=[96.5, 95.2])  # PERF.md:
+# MultiSession through the channel graph's select form (both sides of every branch run) on an
+# NVIDIA H100 80GB HBM3 at 700 W
 
 
 def multisession_run(cfg, srcs, n_blocks, smi):
     """MultiSession.run over n_blocks on the card after a warm-up run (the
     channel graph's capture; a frame and a round on every channel): once
-    timed, then over 4 blocks with its launches on the card counted by
-    kernel name (card_counts): K1 once per channel a block, from inside the
-    graph, and no other kernel."""
+    timed, then over 4 blocks under the profiler (multisession_held)."""
     MultiSession(cfg, Params(), srcs, device=DEV).run(max_blocks=2)
     n_ch = len(srcs)
     first, last, plots = {}, {c: [] for c in range(n_ch)}, [0] * n_ch
@@ -1173,15 +1251,39 @@ def multisession_run(cfg, srcs, n_blocks, smi):
         for c2 in range(c):
             assert np.abs(f - last[c2][0]).max() > 0.05, f"channels {c2} and {c} alike"
     assert min(corr) > CORR_MIN, corr
-    counted = MultiSession(cfg, Params(), srcs, device=DEV)
-    with card_counts() as launches:
-        counted.run(max_blocks=4)
-    only(launches, box_resample_strided_cuda=n_ch * 4)
+    held = multisession_held(cfg, srcs)
     return dict(card=smi, blocks=n_blocks, frames=ms.frames_total, plots=plots,
                 first_frame_corr=corr, per_block_ms=dt / n_blocks * 1e3,
                 aggregate_msps=n_ch * cfg.block_samples * n_blocks / dt / 1e6,
-                realtime_msps=n_ch * cfg.samplerate / 1e6, replaces_pr9=PR9_CONFIG5,
-                k1_launches_in_4_blocks=launches["box_resample_strided_cuda"])
+                realtime_msps=n_ch * cfg.samplerate / 1e6, select_form=SELECT_FORM_CONFIG5,
+                k1_launches_in_4_blocks=held["k1_launches"], branch_nodes_4_blocks=held)
+
+
+def multisession_held(cfg, srcs, n_blocks=4):
+    """MultiSession over n_blocks under the profiler: K1 once per channel a
+    block from inside the graph and no other kernel of the port, every
+    channel's frames the eager channel step's bit for bit, and the round and
+    emit bodies launched by kernel name beside the eager step's flags on the
+    same blocks (reported; phase 5b counts the bodies of this graph's twin
+    exactly)."""
+    n_ch = len(srcs)
+    blocks = channel_blocks(srcs)[:n_blocks]
+    eager = make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV)
+    per_body = body_kernels(eager, stack_states(cfg, n_ch, device=DEV),
+                            torch.from_numpy(blocks[0]).to(DEV))
+    want, flags = eager_channel_frames(eager, blocks)
+    got = [[] for _ in range(n_ch)]
+    counted = MultiSession(cfg, Params(), srcs, on_frame=lambda c, f: got[c].append(np.array(f)),
+                           device=DEV)
+    with card_counts() as launches:
+        counted.run(max_blocks=n_blocks)
+    only(launches, box_resample_strided_cuda=n_ch * n_blocks)
+    frames = [held_frames(got[c], want[c], f"MultiSession channel {c}") for c in range(n_ch)]
+    return dict(k1_launches=launches["box_resample_strided_cuda"], frames=frames,
+                rounds=int(flags.ac_plot_valid.sum()), frames_flagged=int(flags.frame_valid.sum()),
+                bodies_by_profiler=profiler_bodies(launches, per_body, flags, False),
+                device_ms_per_block_under_profiler=launches.device_ms / n_blocks,
+                transfer_ms_per_block_under_profiler=launches.transfer_ms / n_blocks)
 
 
 def _timed(owner, name, spent):
@@ -1241,9 +1343,12 @@ def channels_split(cfg, srcs, n_blocks=8):
 
 def profile_channels(cfg, srcs, n_blocks=4):
     """profile_trace over a MultiSession run: device busy share, device ms
-    and device operations per block, the top device consumers."""
+    and device operations per block, the top device consumers; every
+    channel's frames the eager channel step's."""
     MultiSession(cfg, Params(), srcs, device=DEV).run(max_blocks=2)
-    ms = MultiSession(cfg, Params(), srcs, on_frame=lambda c, f: None, device=DEV)
+    got = [[] for _ in srcs]
+    ms = MultiSession(cfg, Params(), srcs, on_frame=lambda c, f: got[c].append(np.array(f)),
+                      device=DEV)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
         with profile_trace(logdir) as prof:
@@ -1251,6 +1356,10 @@ def profile_channels(cfg, srcs, n_blocks=4):
             ms.run(max_blocks=n_blocks)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    want, _ = eager_channel_frames(make_channels_step_hybrid(cfg, Params(), len(srcs), device=DEV),
+                                   channel_blocks(srcs)[:n_blocks])
+    for c in range(len(srcs)):
+        held_frames(got[c], want[c], f"MultiSession under profile_trace, channel {c}")
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     assert events, "profile_trace recorded no device activity"
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -1316,31 +1425,13 @@ def channels_phase(smi, cfg=CH5, n_ch=N_CH, n_blocks=12):
 
     # the graph: its capture's memory and nodes, then 6 blocks counted on
     # the card and held bit for bit against the eager step's
-    torch.cuda.synchronize()
-    mem0 = torch.cuda.memory_allocated(DEV)
-    torch.cuda.reset_peak_memory_stats(DEV)
-    runner = captured(ChannelRunner(cfg, Params(), n_ch, DEV), raws[0])
-    graph = dict(nodes=graph_nodes(runner),
-                 allocated_bytes=torch.cuda.memory_allocated(DEV) - mem0,
-                 peak_bytes_during_capture=torch.cuda.max_memory_allocated(DEV) - mem0,
-                 device_ops_per_replay=device_ops_per_replay(runner, raws[0]))
-    got = []
-    with card_counts() as launches:
-        state = stack_states(cfg, n_ch, device=DEV)
-        for b in range(6):
-            state, out, _ = runner.run(state, raws[b], ctl_of(b))
-            got.append(StepOutputs(*(x.clone() for x in out)))
-    only(launches, box_resample_strided_cuda=6 * n_ch)
-    state_e = stack_states(cfg, n_ch, device=DEV)
-    for b in range(6):
-        state_e, want = eager(state_e, raws[b], StepControls(*ctl_of(b).T))
-        same_outputs(got[b], want, f"channel graph block {b}")
-    assert all(torch.equal(a, e) for a, e in zip(state_leaves(state), state_leaves(state_e)))
-    assert int(sum(o.frame_valid.sum() for o in got)) >= 6 * n_ch
-    graph["k1_launches_in_6_blocks"] = launches["box_resample_strided_cuda"]
-    print("channel graph (8x16MS/s, one replay a block; equal bit for bit to the eager step "
-          "over 6 blocks, a drop on channel 1) " + json.dumps(graph))
-    del eager, state_e
+    runner = ChannelRunner(cfg, Params(), n_ch, DEV)
+    graph = hold_replays("ChannelRunner config 5 (8x16MS/s, unrolled, one replay a block; a drop "
+                         "on channel 1), 6 blocks", runner, raws[:6], [ctl_of(b) for b in range(6)])
+    assert graph["bodies"]["frames"] >= 6 * n_ch
+    graph["device_ops_per_replay"] = device_ops_per_replay(runner, raws[0])
+    print("branch nodes " + json.dumps(dict(card=smi, **graph)))
+    del eager
 
     # stacked demod against per-channel demod, bit for bit
     steps = {m: make_channels_step_hybrid(cfg, Params(), n_ch, demod_mode=m, device=DEV)
@@ -1358,12 +1449,15 @@ def channels_phase(smi, cfg=CH5, n_ch=N_CH, n_blocks=12):
     # resampler="fused": K2 once per channel a block from inside its graph,
     # held against the K1 graph (once per channel a block) on the same blocks
     fused = captured(ChannelRunner(cfg, Params(resampler="fused"), n_ch, DEV), raws[0])
+    profiled = [RunnerStep(fused), RunnerStep(runner)]
     with card_counts() as k2:
         worst_fused = hold_channels("fused graph (K2) vs K1 graph",
-                                    [(RunnerStep(fused), DEV), (RunnerStep(runner), DEV)],
-                                    cfg, n_ch, blocks[:4], CHANNEL_TOL)
+                                    [(rs, DEV) for rs in profiled], cfg, n_ch, blocks[:4],
+                                    CHANNEL_TOL)
     only(k2, fused_demod_resample_cuda=n_ch * 4, box_resample_strided_cuda=n_ch * 4)
-    del fused
+    for name, rs in zip(("fused graph", "K1 graph"), profiled):
+        replays_held(rs, f"profiled {name}")
+    del fused, profiled
 
     worst = hold_channels(
         "K1 graph vs per-channel steps (plain strided)",
@@ -1385,9 +1479,10 @@ def channels_phase(smi, cfg=CH5, n_ch=N_CH, n_blocks=12):
                                 [(RunnerStep(r), DEV) for r in modes.values()], g64, 4, b64,
                                 CHANNEL_TOL)
     b64_0 = torch.from_numpy(b64[0]).to(DEV)
-    mode_ops = {m: dict(nodes=graph_nodes(r), device_ops_per_replay=device_ops_per_replay(r, b64_0))
+    mode_ops = {m: dict(nodes=r.census(), device_ops_per_replay=device_ops_per_replay(r, b64_0))
                 for m, r in modes.items()}
-    assert mode_ops["batched"]["nodes"] < mode_ops["unrolled"]["nodes"], mode_ops
+    assert mode_ops["batched"]["nodes"]["all_nodes"] < mode_ops["unrolled"]["nodes"]["all_nodes"], \
+        mode_ops
     del modes
     print("channels held: " + json.dumps(dict(
         stacked_demod_bit_identical=True, fused_k2_launches_in_4_blocks=k2[
@@ -1597,8 +1692,9 @@ def check_range_entry(cfg, T=T_RANKS):
 def tui_over_pty(cfg, n_blocks=3):
     """cli.main([... "--tui" ...]) in this process with a pty as its
     terminal, 8 MS/s on the card: the viewer streams n_blocks (K1 once per
-    block on the card, no other kernel) and writes half-block video and its
-    status bar."""
+    block on the card, no other kernel; the frames the eager step's over the
+    synthetic source's blocks) and writes half-block video and its status
+    bar."""
     import fcntl
     import pty
     import struct
@@ -1622,7 +1718,7 @@ def tui_over_pty(cfg, n_blocks=3):
     sys.stdout = os.fdopen(slave, "w", buffering=1, closefd=False)
     t0 = time.perf_counter()
     try:
-        with card_counts() as launches:
+        with card_counts() as launches, session_frames((cfg.height, cfg.width)) as frames:
             rc = cli.main(["--source", "synthetic", "--source-params",
                            f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} {cfg.samplerate} 0.02",
                            "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
@@ -1644,6 +1740,12 @@ def tui_over_pty(cfg, n_blocks=3):
     k1 = launches["box_resample_strided_cuda"]
     assert n_blocks <= k1 <= n_blocks + 1, launches
     only(launches, box_resample_strided_cuda=k1)
+    pixclock = cfg.height * (cfg.width // 2) * cfg.refreshrate
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    synthetic = [synth_iq(raster, samplerate=cfg.samplerate, pixelclock=pixclock,
+                          n_samples=cfg.block_samples, start_sample=b * cfg.block_samples,
+                          noise=0.02) for b in range(n_blocks)]
+    held_frames(frames, eager_frames(cfg, Params(), synthetic), "tui")
     done = [ln for ln in text.decode(errors="replace").splitlines() if "tui done:" in ln]
     assert done and b"\xe2\x96\x80" in text and b"fps" in text, text[-500:]
     return dict(blocks=n_blocks, k1_launches=k1, log=done[-1].split("] ", 1)[-1],
@@ -1747,26 +1849,55 @@ GRAPH_TOL = 1e-4  # the card's device step and graphs against the CPU's device s
 # scaled by autogain)
 
 
+def is_transfer(name: str) -> bool:
+    """A profiler event that copies between the host and the card."""
+    return name.startswith(("Memcpy HtoD", "Memcpy DtoH"))
+
+
+class Trace(dict):
+    """card_counts' result: {wrapper name: launches of its kernel on the
+    card}, and every device event's count by name (`kernels`), the device
+    ms of the traced code (the sum of its events' device time), the part of
+    it that copies between the host and the card (transfer_ms) and its wall
+    ms (host clock, ending in a synchronize), all under the profiler."""
+
+    def named(self, word: str) -> int:
+        """Launches of the kernels whose name holds `word` (any case)."""
+        return sum(c for k, c in self.kernels.items() if word in k.lower())
+
+    def ms_each(self, word: str) -> float:
+        """Device ms a launch of the kernels whose name holds `word`."""
+        total = sum(v for k, v in self.device_ms_by.items() if word in k.lower())
+        return total / self.named(word)
+
+
 @contextlib.contextmanager
 def card_counts():
-    """{wrapper name: launches of its kernel on the card} in the enclosed
-    code, counted by kernel name in a torch.profiler trace, so a CUDA-graph
-    replay's launches count (a wrapper's own count sees its eager launches
-    and the captures, not the replays). Filled in on exit."""
+    """A Trace of the enclosed code, counted by kernel name in a
+    torch.profiler trace, so a CUDA-graph replay's launches count (a
+    wrapper's own count sees its eager launches and the captures, not the
+    replays), the launches inside a replay's IF-node bodies too. Filled in
+    on exit."""
     from torch.profiler import ProfilerActivity, profile
 
-    got = {}
+    got = Trace()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # the trace keeps only device events it times inside its window, so
         # the counted work starts and ends well inside it
         time.sleep(0.05)
+        t0 = time.perf_counter()
         yield got
         torch.cuda.synchronize()
+        got.wall_ms = (time.perf_counter() - t0) * 1e3
         time.sleep(0.05)
-    seen = [(e.key, e.count) for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    got.kernels = {e.key: e.count for e in events}
+    got.device_ms_by = {e.key: e.self_device_time_total / 1e3 for e in events}
+    got.device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    got.transfer_ms = sum(e.self_device_time_total for e in events if is_transfer(e.key)) / 1e3
     for wrapper, name in KERNEL_NAMES.items():
-        got[wrapper] = sum(c for k, c in seen if name in k)
+        got[wrapper] = sum(c for k, c in got.kernels.items() if name in k)
 
 
 def eager_outputs(step, state, raws, controls):
@@ -1798,6 +1929,70 @@ def batches_of(runner, raws, controls, k):
 def same_outputs(got, want, what):
     for name, a, b in zip(StepOutputs._fields, got, want):
         assert a.dtype == b.dtype and torch.equal(a, b), (what, name)
+
+
+def _valid_frames(out, lead=()):
+    """The valid frames of one block's outputs, as numpy arrays in slot
+    order (per leading index, e.g. per channel, when lead is given)."""
+    valid = out.frame_valid.reshape(*lead, -1)
+    stack = out.frame.reshape(*valid.shape, *out.frame.shape[-2:])
+    return [(tuple(ix[:-1]), stack[tuple(ix)].cpu().numpy()) for ix in valid.nonzero().tolist()]
+
+
+def eager_frames(cfg, params, blocks):
+    """The frames the eager device step (the select form: both sides of
+    every branch) emits over the blocks with no control, as numpy arrays in
+    stream order: what a profiled run's frames are held to, bit for bit."""
+    step = make_step(cfg, params, device=DEV)
+    state = init_state(cfg, params.fir_lowpass_taps, device=DEV)
+    frames = []
+    for raw in blocks:
+        state, out = step(state, torch.as_tensor(np.asarray(raw)).to(DEV), StepControls())
+        frames += [f for _, f in _valid_frames(out)]
+    return frames
+
+
+def eager_channel_frames(step, blocks):
+    """Per channel, the frames the eager channel step emits over the blocks
+    ([C, 2n] each) with no control, and its outputs stacked over the
+    blocks."""
+    n_ch = step.n_channels
+    state = stack_states(step.config, n_ch, step.params.fir_lowpass_taps, device=DEV)
+    per, outs = [[] for _ in range(n_ch)], []
+    for raws in blocks:
+        state, out = step(state, torch.as_tensor(np.asarray(raws)).to(DEV), StepControls())
+        for (c,), f in _valid_frames(out, (n_ch,)):
+            per[c].append(f)
+        outs.append(out)
+    return per, StepOutputs(*(torch.stack(list(v)) for v in zip(*outs)))
+
+
+def held_frames(got, want, what):
+    """A profiled run's frames against the eager step's: as many as the run
+    emitted (it may stop first), each equal bit for bit, so a launch missing
+    from a replay shows as a wrong frame. Returns the count."""
+    assert 0 < len(got) <= len(want), (what, len(got), len(want))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and np.array_equal(a, b), (what, i)
+    return len(got)
+
+
+@contextlib.contextmanager
+def session_frames(shape):
+    """The frames of `shape` every Session downloads in the enclosed code
+    (wrapping its one download of a batch's valid frames), in order."""
+    got, real = [], session_mod._download
+
+    def download(stack, rows):
+        arrays = real(stack, rows)
+        got.extend(a.copy() for a in arrays if a.shape == shape)
+        return arrays
+
+    session_mod._download = download
+    try:
+        yield got
+    finally:
+        session_mod._download = real
 
 
 def cpu_outputs(cfg, raws, controls):
@@ -1916,7 +2111,9 @@ def graph_step_phase(cfg, smi, n_blocks=24):
     warm_compile_step(cfg, Params(), batch_blocks=8, raw_dtype=np.uint8, device=DEV)
     src = ReplayU8(cfg, raster, 0)
     src.blocks = blocks
-    sess = Session(cfg, Params(), src, batch_blocks=8, device=DEV)
+    busy_frames = []
+    sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=busy_frames.append),
+                   batch_blocks=8, device=DEV)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
         with profile_trace(logdir) as prof:
@@ -1924,6 +2121,7 @@ def graph_step_phase(cfg, smi, n_blocks=24):
             sess.run()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+    held_frames(busy_frames, frames_eager, "Session batch 8 under profile_trace")
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3
     busy = dict(wall_ms_per_block=wall_ms / n_blocks, device_ms_per_block=dev_ms / n_blocks,
@@ -1972,6 +2170,241 @@ def graph_step_phase(cfg, smi, n_blocks=24):
               worst_frame_diff_vs_cpu_8MS=err8)))
     return by_path, {"graph runner batch 4 fused 64MS/s, 8 blocks": k2["fused"]}
 
+
+# ---- phase 5b: the branches as CUDA-graph IF nodes ---------------------------
+# Every runner captures each branch of the step (pipeline._cond: the FFT
+# round, each emit slot, the sync-skip shift; per channel, or gated on any()
+# over the channels) as IF nodes, so a replay runs only the taken bodies.
+# Each runner is held bit for bit to the eager step, which runs the select
+# form (every body every block). The bodies a replay ran are counted two
+# ways against the rounds and frames its packed flags report: by device
+# counters captured into each body (exact; the checked count), and by
+# kernel name under the profiler (reported: in a graph of many IF nodes the
+# profiler has named some body kernels wrongly, e.g. 36 or 14 cuFFT kernels
+# where 20 ran, with the outputs bit for bit the eager step's).
+
+SET_KERNEL = "set_conditional_kernel"  # csrc/graph_cond.cu: sets a branch's IF-node conditions
+ROUND_KERNEL, POST_KERNEL = "fft", "scan"  # names (any case) of cuFFT's kernels,
+# which only the FFT round runs, and of the sweet-spot searches' cumulative
+# sums, which only the post-process runs
+
+
+class MultiStepRunner(ChannelRunner):
+    """The channel runner over make_multi_step's form: the bodies once over
+    the channels behind a gate on any(), at any frames a block."""
+
+    def __init__(self, config, params, n_channels, device):
+        super().__init__(config, params, n_channels, device, cond_mode="batched")
+
+    def _make_step(self, device):
+        return ChannelsStep(self.config, self.params, self.n_blocks, device, cond_mode="batched")
+
+
+def body_kernels(step, state, raw):
+    """ROUND_KERNEL launches per round body and POST_KERNEL launches per
+    emit body: one eager block of the step (the select form, which runs
+    every body once a block: per channel in the unrolled channel step, once
+    over the channels in the batched one) under the profiler."""
+    k = step.config.frames_per_block
+    per_channel = isinstance(step, ChannelsStep) and step.cond_mode == "unrolled"
+    c = raw.shape[0] if per_channel else 1
+    with card_counts() as trace:
+        step(state, raw, StepControls())
+    per = (trace.named(ROUND_KERNEL) / c, trace.named(POST_KERNEL) / (c * k))
+    assert all(v > 0 and float(v).is_integer() for v in per), per
+    return int(per[0]), int(per[1])
+
+
+def taken_bodies(out, gated):
+    """(round bodies, emit bodies) a run of the node form takes, from its
+    packed flags (out stacked over the blocks): one round body per
+    completed round and one emit body per emitted frame, or, gated (the
+    batched channel forms), one a block in which any channel completed a
+    round and one per emit slot that any channel filled."""
+    rv, fv = out.ac_plot_valid, out.frame_valid
+    if gated:
+        return int(rv.any(dim=1).sum()), int(fv.any(dim=1).sum())
+    return int(rv.sum()), int(fv.sum())
+
+
+def profiler_bodies(trace, per_body, out, gated):
+    """The round and emit bodies a run launched by kernel name under the
+    profiler (ROUND_KERNEL and POST_KERNEL launches over the launches of one
+    body), beside what its packed flags say it took; reported, not held
+    (see the section's comment)."""
+    rounds, emits = taken_bodies(out, gated)
+    got = (trace.named(ROUND_KERNEL), trace.named(POST_KERNEL))
+    return dict(fft_kernels=got[0], post_process_scan_kernels=got[1],
+                per_round_body=per_body[0], per_emit_body=per_body[1],
+                agree=got == (per_body[0] * rounds, per_body[1] * emits))
+
+
+def _site(fn) -> str:
+    """A branch's name: its taken body's (any:<name> for a gated one)."""
+    if isinstance(fn, functools.partial):
+        if fn.func is pipeline_mod._both:
+            return "any:" + _site(fn.args[1])
+        return _site(fn.func)
+    return fn.__name__
+
+
+@contextlib.contextmanager
+def counted_bodies(slots=16):
+    """While a runner captures in the enclosed code, each of its IF-node
+    bodies first adds one to a device counter of its own branch and side
+    (one small kernel more in the body; the counters live outside the
+    graph, and every replay writes them, so the caller keeps them as long
+    as the graph), so what a replay ran is read from the counters after it.
+    Yields the counters (`cnt`) and their slots by name (`index`: a
+    branch's name for its taken side, <name>:else for the other)."""
+    got = types.SimpleNamespace(cnt=torch.zeros(slots, dtype=torch.int64, device=DEV), index={})
+    real = graph_cond.Branches.if_else
+
+    def counted(fn, name):
+        i = got.index.setdefault(name, len(got.index))
+
+        def body(*ops):
+            got.cnt[i].add_(1)
+            return fn(*ops)
+
+        return body
+
+    def if_else(self, pred, true_fn, false_fn, operands):
+        site = _site(true_fn)
+        return real(self, pred, counted(true_fn, site),
+                    None if false_fn is None else counted(false_fn, site + ":else"), operands)
+
+    graph_cond.Branches.if_else = if_else
+    try:
+        yield got
+    finally:
+        graph_cond.Branches.if_else = real
+
+
+def held_counts(got, out, gated, evaluations, shifts, what):
+    """The bodies the counters saw, against the packed flags: every round
+    and emit branch evaluated (`evaluations`: (round, emit) evaluations in
+    the run) took its taken side as often as the flags say and its other
+    side every other time; the sync-skip shift ran `shifts` times."""
+    seen = {name: int(got.cnt[i]) for name, i in got.index.items()}
+    rounds, emits = taken_bodies(out, gated)
+    pre = "any:" if gated else ""
+    want = {pre + "round_body": rounds, pre + "round_body:else": evaluations[0] - rounds,
+            pre + "emit_fn": emits, pre + "emit_fn:else": evaluations[1] - emits,
+            "shift": shifts}
+    assert seen == want, (what, seen, want)
+    return seen
+
+
+def hold_replays(name, runner, blocks, ctls):
+    """One node-form runner over the blocks (single channel: raws [2n] and
+    controls (dropped, sync, motionblur) per block, K to a replay; channels:
+    raws [C, 2n] and controls [C, 3] per block, one to a replay), captured
+    with body counters (counted_bodies): its capture's memory, then the
+    replays from a fresh state under the profiler, every output and the
+    final state bit for bit the eager step's, the bodies run (counters,
+    held) and launched by kernel name (profiler, reported) against the
+    packed flags, the graph's parent, IF and body nodes (less the counters'
+    nodes, one a body), device ms a block and the busy share."""
+    cfg, k = runner.config, runner.n_blocks
+    channels = isinstance(runner, ChannelRunner)
+    if channels:
+        new_state = lambda: stack_states(cfg, k, device=DEV)  # noqa: E731
+        batch, stack = 1, (lambda i: blocks[i])
+        ctl_of, eager_ctl = (lambda i: np.asarray(ctls[i], np.float64)), (
+            lambda i: StepControls(*np.asarray(ctls[i]).T))
+    else:
+        new_state = lambda: init_state(cfg, device=DEV)  # noqa: E731
+        batch, stack = k, (lambda i: torch.stack(blocks[i:i + k]))
+        ctl_of, eager_ctl = (lambda i: np.asarray(ctls[i:i + k], np.float64)), (
+            lambda i: StepControls(*ctls[i]))
+    per_body = body_kernels(runner.step, new_state(), blocks[0])
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with counted_bodies() as counters:  # the eager warm-up block and the capture
+        runner.run(new_state(), stack(0), ctl_of(0))
+    # every replay of the graph adds to the counters: they live as long as it
+    runner.body_counters = counters
+    torch.cuda.synchronize()
+    memory = dict(after_capture_bytes=torch.cuda.memory_allocated(DEV) - mem0,
+                  capture_peak_bytes=torch.cuda.max_memory_allocated(DEV) - mem0)
+    counters.cnt.zero_()
+    state, outs = new_state(), []
+    with card_counts() as trace:
+        for i in range(0, len(blocks), batch):
+            state, out, _ = runner.run(state, stack(i), ctl_of(i))
+            outs.append(StepOutputs(*(x.clone() for x in out)))
+    join = torch.stack if channels else torch.cat
+    got = StepOutputs(*(join(list(v)) for v in zip(*outs)))
+    state_e, wants = new_state(), []
+    for i, raw in enumerate(blocks):
+        state_e, want = runner.step(state_e, raw, eager_ctl(i))
+        wants.append(want)
+    same_outputs(got, StepOutputs(*(torch.stack(list(v)) for v in zip(*wants))), name)
+    assert all(torch.equal(a, b) for a, b in zip(state_leaves(state), state_leaves(state_e))), name
+    gated = channels and runner.cond_mode == "batched"
+    n, kf = len(blocks), cfg.frames_per_block
+    per_block = 1 if (gated or not channels) else k  # each branch's evaluations a block
+    sync = [np.asarray(c, np.float64).reshape(-1, 3)[:, 1] for c in ctls]
+    shifts = int(sum(((s != 0) & (got.n_pixels[b].reshape(-1).cpu().numpy() > 0)).sum()
+                     for b, s in enumerate(sync)))
+    census = runner.census()
+    bodies = len(runner._graphs[torch.uint8].branches.bodies)
+    census.update(body_nodes=census["body_nodes"] - bodies, all_nodes=census["all_nodes"] - bodies)
+    return dict(graph=name, census=census, memory=memory,
+                bodies=dict(rounds=int(got.ac_plot_valid.sum()), frames=int(got.frame_valid.sum()),
+                            counted=held_counts(counters, got, gated,
+                                                (n * per_block, n * per_block * kf), shifts, name),
+                            profiler=profiler_bodies(trace, per_body, got, gated)),
+                under_profiler_with_body_counters=dict(device_ms_per_block=trace.device_ms / n,
+                                    transfer_ms_per_block=trace.transfer_ms / n,
+                                    wall_ms_per_block=trace.wall_ms / n,
+                                    busy_share=trace.device_ms / trace.wall_ms,
+                                    device_ops_per_block=sum(trace.kernels.values()) / n))
+
+
+def branch_nodes_phase(smi):
+    """Phase 5b: every node-form runner against the eager (select-form)
+    step, block by block and bit for bit (hold_replays): the block runner at
+    64 MS/s, default Params, K = 1, 4 and 8 over 24 blocks (blocks with and
+    without a round and a frame); at 8 MS/s (K == 4) at K = 4 with a drop
+    of 37,777 samples in slot 2 and a sync shift in slot 0 (the shift's
+    node taken); the channel runner with cond_mode="batched" at 64 MS/s
+    with C = 4 and make_multi_step's gated form at 8 MS/s with C = 3 (K ==
+    4), a drop on channel 1 each. The channel runner at config 5 (unrolled)
+    and MultiSession are held in phase 9 (its "branch nodes" line and
+    multisession_held)."""
+    g64, g8 = GEOMETRIES["64MS/s"], GEOMETRIES["8MS/s"]
+    raws64 = [torch.from_numpy(b).to(DEV)
+              for b in ReplayU8(g64, render_test_pattern(g64.height, g64.width // 2), 24).blocks]
+    rows = []
+
+    def report(row):
+        print("branch nodes " + json.dumps(dict(card=smi, **row)), flush=True)
+        rows.append(row)
+
+    for k in (1, 4, 8):
+        report(hold_replays(f"BlockRunner 64MS/s K={k}, 24 blocks",
+                            BlockRunner(g64, Params(), k, DEV), raws64, [(0, 0, 0.0)] * 24))
+    blocks8 = [torch.from_numpy(b).to(DEV)
+               for b in ReplayU8(g8, render_test_pattern(g8.height, g8.width // 2), 8).blocks]
+    ctl8 = [(0, 1234, 0.3), (0, 0, 0.3), (37777, 0, 0.3)] + [(0, 0, 0.3)] * 5
+    report(hold_replays("BlockRunner 8MS/s K=4 (a drop in slot 2, a sync shift in slot 0), "
+                        "8 blocks", BlockRunner(g8, Params(), 4, DEV), blocks8, ctl8))
+
+    def channel_case(name, runner, cfg, n_ch, n_blocks):
+        blocks = [torch.from_numpy(b).to(DEV)
+                  for b in channel_blocks(channel_sources(cfg, n_ch, n_blocks))]
+        ctls = [np.zeros((n_ch, 3)) for _ in blocks]
+        ctls[1][1, 0] = 37777  # channel 1 drops before block 1
+        report(hold_replays(name, runner, blocks, ctls))
+
+    channel_case("ChannelRunner batched 64MS/s C=4 (a drop on channel 1), 6 blocks",
+                 ChannelRunner(g64, Params(), 4, DEV, cond_mode="batched"), g64, 4, 6)
+    channel_case("make_multi_step runner 8MS/s C=3 K=4 (gated; a drop on channel 1), 4 blocks",
+                 MultiStepRunner(g8, Params(), 3, DEV), g8, 3, 4)
+    return rows
 
 
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
@@ -2039,6 +2472,7 @@ def main():
     profile_steady(g64)
     print(f"per-block host fetch round trip: {fetch_cost_us():.1f} us")
     graph_launches, graph_k2 = graph_step_phase(g64, smi)
+    branch_nodes_phase(smi)
 
     with tempfile.TemporaryDirectory() as tmp:
         front_door(g64, tmp, rows["K1"]["per_block_ms_under_profiler"])
@@ -2081,6 +2515,20 @@ def main():
             g = perf["64MS/s"]["gather"]
             kern[-1].update(gather_ms=g["ms"], gather_plain_ms=g["plain_ms"],
                             wrapper_ms=p["wrapper_ms"])
+    # the branch nodes' set kernel (no TPU kernel: it stands for XLA's
+    # conditional): its launches and device ms on the main path (the default
+    # 64 MS/s Session), its plain version computing the same two condition
+    # values with torch, the bound of its bytes (1 read, 2 x 4 written), and
+    # max_abs_err 0: every node-form replay equals the select form bit for bit
+    pred = torch.ones((), dtype=torch.bool, device=DEV)
+    set_row = rows["K1"]["set_kernel"]
+    kern.append(dict(
+        name=f"graph_cond {SET_KERNEL}", route="cuda",
+        source="tempestsdr_tpu_torch/csrc/graph_cond.cu",
+        replaces="tempestsdr_tpu/stream/pipeline.py:686", launches=set_row["launches"],
+        max_abs_err=0.0, ms=set_row["ms"],
+        plain_ms=time_launches(lambda: torch.stack([pred, ~pred]).to(torch.int32)),
+        bound_ms=bound(9, 0)["bound_ms"], bound_by="bytes", library_ms=None))
     print(f"card: {smi}")
     print(json.dumps({"floors": floors}))
     print(json.dumps({"kernels": kern}))

@@ -24,8 +24,9 @@ WRAPPERS = (
     gather_windows,
 )
 
-# the CUDA sources under csrc/, one library each
-SOURCES = ("strided_resample", "fused_demod_resample", "chunked_resample")
+# the CUDA sources under csrc/, one library each (graph_cond: the step's
+# branch nodes, kernels/graph_cond.py)
+SOURCES = ("strided_resample", "fused_demod_resample", "chunked_resample", "graph_cond")
 
 
 def reset_launch_counts() -> None:

@@ -16,14 +16,16 @@ from .mesh import Mesh, make_mesh
 
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int, *,
-                     backend: str) -> None:
+                     backend: str = "nccl") -> None:
     """torch.distributed bring-up; call on every rank before any collective.
+    The JAX package's three-argument call binds as it is.
 
     coordinator: "host:port" of rank 0's rendezvous (or a full init method
-    such as "file:///path"). backend is explicit and never guessed: "nccl"
-    for one rank per card (this rank takes card process_id % cards, so
-    start a host's ranks in order), "gloo" for CPU ranks and for several
-    ranks that share one card."""
+    such as "file:///path"). backend: "nccl" (the default) for one rank per
+    card, the deployment the three-argument call means (this rank takes
+    card process_id % cards, so start a host's ranks in order); "gloo",
+    given explicitly, for CPU ranks and for several ranks that share one
+    card."""
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
     if backend == "nccl":

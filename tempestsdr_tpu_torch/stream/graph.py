@@ -16,17 +16,24 @@ then one frame_valid flag per emit slot; see packed_values).
 On a CUDA device the runner captures, once per raw dtype, the K steps into
 one torch.cuda.CUDAGraph over static buffers: the raw blocks [K, 2n], the
 controls [K, 3] and the state (init_state's leaves, read and written in
-place by the graph, like the JAX Session's donated state). Before capture
-one step runs on a side stream on a scratch copy of the state, so the cuFFT
-plan, the kernels' library load and the allocator's first blocks are made
-outside the graph. A replay then copies in only the leaves of `state` that
-are not the runner's own (the first call, a checkpoint, an autocorrelation
-reset, a refresh nudge, another owner) and returns the runner's state: a
-caller that passes it back pays no copy. The outputs and packed are the
+place by the graph, like the JAX Session's donated state). The capture
+runs inside kernels.graph_cond.branch_nodes, so every branch of the step
+(pipeline._cond: the FFT round, each emit slot, the sync-skip shift, per
+channel in the channel step) is a pair of CUDA-graph IF nodes and a replay
+runs only the taken side, as the JAX program's lax.conds do; a branch that
+cannot be made a node raises. Before capture one step runs on a side
+stream on a scratch copy of the state, in the select form (both sides of
+every branch run), so every body's kernels, the cuFFT plan, the kernels'
+library load and the allocator's first blocks are made outside the graph.
+A replay then copies in only the leaves of `state` that are not the
+runner's own (the first call, a checkpoint, an autocorrelation reset, a
+refresh nudge, another owner) and returns the runner's state: a caller
+that passes it back pays no copy. The outputs and packed are the
 graph's and are rewritten by the next replay. A failed capture or replay
 raises; there is no eager fallback on the card.
 
-On the CPU (the tests) the same device step runs eagerly in a loop.
+On the CPU (the tests) the same device step runs eagerly in a loop, its
+branches as selects.
 
 ChannelRunner(config, params, n_channels, device) is the same runner over
 the channel step (pipeline.make_channels_step_hybrid): one block of C
@@ -48,6 +55,7 @@ import numpy as np
 import torch
 
 from ..config import PipelineConfig
+from ..kernels import graph_cond
 from ..params import Params
 from .pipeline import CONTROL_DTYPES, StepControls, make_channels_step_hybrid, make_step
 from .state import StepOutputs, StreamState, init_state, state_compatible, state_leaves
@@ -77,13 +85,15 @@ def _stack(outs) -> StepOutputs:
 
 
 class _Graph(NamedTuple):
-    """One capture: the graph and its static inputs and outputs."""
+    """One capture: the graph, its static inputs and outputs, and its branch
+    nodes (their bodies' memory pool lives as long as the graph)."""
 
     graph: torch.cuda.CUDAGraph
     raws: torch.Tensor
     ctl: torch.Tensor
     outputs: StepOutputs
     packed: torch.Tensor
+    branches: graph_cond.Branches
 
 
 class BlockRunner:
@@ -182,18 +192,25 @@ class BlockRunner:
             self._body(scratch, raws, ctl, warm_up=True)
         torch.cuda.current_stream(dev).wait_stream(side)
         # keep_graph: the captured graph stays readable (raw_cuda_graph), so
-        # a measurement can count its nodes
+        # a measurement can count its nodes (census)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # thread_local: a session streaming on another thread may keep
         # synchronizing while this thread captures (a warm start)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with graph_cond.branch_nodes(dev) as branches, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             state, outputs = self._body(self._static, raws, ctl)
             packed = packed_values(outputs)
             for dst, src in zip(state_leaves(self._static), state_leaves(state)):
                 if src is not dst:
                     dst.copy_(src)
         graph.instantiate()
-        return _Graph(graph, raws, ctl, outputs, packed)
+        return _Graph(graph, raws, ctl, outputs, packed, branches)
+
+    def census(self, dtype=torch.uint8) -> dict:
+        """The node counts of the graph captured for raws of `dtype`:
+        parent, IF and body nodes (graph_cond.census)."""
+        g = self._graphs[dtype]
+        return graph_cond.census(g.graph.raw_cuda_graph(), g.branches.bodies)
 
 
 class ChannelRunner(BlockRunner):

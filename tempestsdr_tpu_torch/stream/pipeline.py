@@ -21,23 +21,30 @@ reference's threads do (SURVEY.md §3.2-3.4), as tempestsdr_tpu's make_step:
 make_step returns the device step (DeviceStep, built by _make_step_parts as
 the JAX package builds its step): one device program that reads nothing to
 the host between the raw block going in and the outputs coming out. Every
-lax.cond of the JAX step is a select here, as a vmap turns it into one: the
-FFT round and each emit slot's post-process run every block, and their
-results are committed with torch.where on the device predicate (round_done,
-fill2 >= (k+1)*frame_pixels); a slot that does not fire gives zeros. Every
-offset the JAX step traces (the ring write at fill0, the sync skip by k,
-the fold write at fill, the leftover move from emitted*frame_pixels, the
-autoshift roll) is device index arithmetic, base + arange, kept in range by
-the buffer lengths (state.framebuf_len, the ring's ac_round + block). The
-controls ride as tensors. So K steps can be captured into one CUDA graph
-(stream/graph.py), as the JAX package scans K steps in one program.
+lax.cond of the JAX step is a _cond on its device predicate: the FFT round
+(round_done), each emit slot (fill2 >= (k+1)*frame_pixels; a slot that
+does not fire gives zeros) and the sync-skip shift (k > 0). Captured into
+a CUDA graph (stream/graph.py's runners), a _cond is a pair of IF nodes
+(kernels/graph_cond.py), so a replay runs only the taken branch, as XLA
+runs a lax.cond. Everywhere else (the CPU, the eager step on the card, the
+sharded steps) it is a select, as a vmap makes it: both branches run and
+torch.where commits the taken one. Every offset the JAX step traces (the
+ring write at fill0, the sync skip by k, the fold write at fill, the
+leftover move from emitted*frame_pixels, the autoshift roll) is device
+index arithmetic, base + arange, kept in range by the buffer lengths
+(state.framebuf_len, the ring's ac_round + block). The controls ride as
+tensors. So K steps can be captured into one CUDA graph, as the JAX
+package scans K steps in one program.
 
 The channel steps (ChannelsStep: make_channels_step_hybrid and the
 unrolled, gated and multi forms) and the sharded steps
 (parallel/timeshard.py) are built from the same parts and are device
 programs too: per channel `pre` on that channel's rows, one 2-D ring write,
-then the round and emit bodies per channel or once over the channel axis
-(cond_mode="batched": the post-process ops take a leading axis).
+then the round and emit bodies per channel, each behind its channel's own
+_cond (cond_mode="unrolled", the JAX hybrid's real per-channel lax.conds),
+or once over the channel axis behind one _cond on any() of the channels'
+predicates with a per-channel select inside (cond_mode="batched", the JAX
+gated forms; the post-process ops take a leading axis).
 
 Every step updates the fold buffer and the autocorrelation ring in place:
 it consumes the state it is given, like the JAX Session's donated step.
@@ -45,6 +52,9 @@ it consumes the state it is given, like the JAX Session's donated step.
 
 from __future__ import annotations
 
+import functools
+import operator
+import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -59,6 +69,7 @@ from ..config import (
 )
 from ..device import resolve_device
 from ..params import Params
+from ..kernels import graph_cond
 from ..kernels.chunked_resample import box_resample_pallas_cuda, box_resample_pallas_windows_cuda
 from ..kernels.fused_demod_resample import fused_demod_resample_cuda
 from ..kernels.strided_resample import box_resample_strided_cuda
@@ -250,15 +261,74 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
+def _lead(pred, x):
+    """pred [..] shaped to broadcast over the leading axes of x."""
+    return pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim()))
+
+
 def _select(pred, a, b):
     """Commit `a` where the bool tensor pred holds, else `b`, across matching
     (named) tuples of tensors: pred 0-d, or [C] over the leading channel axis
     of every leaf (the JAX package's _select_tree); b may hold Python
     scalars."""
-    def sel(x, y):
-        return torch.where(pred.reshape(pred.shape + (1,) * (x.dim() - pred.dim())), x, y)
+    return _map(lambda x, y: torch.where(_lead(pred, x), x, y), a, b)
 
-    return _map(sel, a, b)
+
+_TAKEN = threading.local()  # .masks: the predicates of the selects under way
+
+
+def _write_taken(dst, src) -> None:
+    """A branch's in-place write, dst <- src, where the branch is taken: a
+    plain copy in a branch that runs only when taken (an IF node's body),
+    masked by the enclosing selects' predicates where both branches run."""
+    masks = getattr(_TAKEN, "masks", [])
+    if masks:
+        mask = functools.reduce(operator.and_, masks)
+        src = torch.where(_lead(mask, dst), src, dst)
+    dst.copy_(src)
+
+
+def _both(pred, true_fn, false_fn, *operands):
+    """The select form of a branch: both sides run (the true side's in-place
+    writes masked by pred, _write_taken), and pred commits the true side's
+    outputs over the false side's."""
+    masks = getattr(_TAKEN, "masks", None)
+    if masks is None:
+        masks = _TAKEN.masks = []
+    masks.append(pred)
+    try:
+        a = true_fn(*operands)
+    finally:
+        masks.pop()
+    return a if false_fn is None else _select(pred, a, false_fn(*operands))
+
+
+def _branch(pred, true_fn, false_fn, operands):
+    """One lax.cond on a 0-d predicate: IF nodes while a CUDA graph captures
+    it (graph_cond.if_else, which raises outside a runner's capture), else
+    the select form. The tests put a host `if` here to run only the taken
+    side on the CPU."""
+    if graph_cond.capturing(pred):
+        return graph_cond.if_else(pred, true_fn, false_fn, operands)
+    return _both(pred, true_fn, false_fn, *operands)
+
+
+def _cond(pred, true_fn, false_fn, operands=()):
+    """lax.cond(pred, true_fn, false_fn, *operands) on the card's terms (see
+    the module docstring). pred 0-d: one branch. pred [C] (the channel axis
+    of the operands): the JAX package's gated form, one branch on any(pred)
+    whose taken side runs both sides over the channels and commits per
+    channel (_both).
+
+    Each side returns matching (named) tuples of tensors; the false side may
+    put Python numbers in place of tensors. A side may write an operand in
+    place only through _write_taken, and then the false side writes nothing
+    there. false_fn None: the branch only writes in place (true_fn returns
+    ()), and has no untaken side."""
+    if pred.dim():
+        gated = functools.partial(_both, pred, true_fn, false_fn)
+        return _branch(pred.any(), gated, false_fn, operands)
+    return _branch(pred, true_fn, false_fn, operands)
 
 
 class _Blocks:
@@ -346,7 +416,7 @@ class StepParts(NamedTuple):
 def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
                      env_external: bool = False) -> StepParts:
     """The JAX package's _make_step_parts (tempestsdr_tpu/stream/pipeline.py)
-    on one device, its lax.conds as selects:
+    on one device, its lax.conds as _conds:
 
       pre(state, raw, controls) -> inter     (drops, rate, demod, resample,
           then pre_back: the per-sample work of one channel)
@@ -355,9 +425,9 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
           new_tail, fir_tail) -> inter       (ring bookkeeping and write, sync
           skip, fold write; the time-sharded body's back half too)
       ac_round_fn(ops, round_done) -> ops'   (FFT + running averages and the
-          ring's leftover move, committed where round_done)
+          ring's leftover move, behind a _cond on round_done)
       emit_chain(ops) -> (ops', frames, valid)        (the K emit slots, each
-          one frame's post-process, emit_fn, committed where fill2 >=
+          one frame's post-process, emit_fn, behind a _cond on fill2 >=
           (k+1)*frame_pixels, else no_emit_fn's zeros; and the leftover move)
       emit_ops_of / ac_ops_of(state, inter) -> ops
       assemble(state, inter, ac_ops, emit_ops, frames, valid) -> (state', outputs)
@@ -366,7 +436,7 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
 
     Every part after pre takes one channel's values or a stack of channels
     on a leading axis ([C] predicates, frames [C, H, W]): run once over C
-    channels, ac_round_fn and emit_chain are the JAX package's
+    channels, ac_round_fn and emit_chain are the JAX package's any()-gated
     jax.vmap(ac_round_fn) and jax.vmap(emit_fn) with per-channel select
     commits.
 
@@ -434,8 +504,13 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
         # pixels dropped, zeros shifted in
         pend = torch.remainder(state.skip_pixels + controls.syncoffset, fp)
         k = torch.minimum(pend, n_out)
-        src = k.to(torch.int64) + pix_idx
-        pixels = torch.where(src < mp, pixels[src.clamp(max=mp - 1)], 0.0)
+
+        def shift(px):  # in place: the block's pixels are its own
+            src = k.to(torch.int64) + pix_idx
+            _write_taken(px, torch.where(src < mp, px[src.clamp(max=mp - 1)], 0.0))
+            return ()
+
+        _cond(k > 0, shift, None, (pixels,))
         n_valid = n_out - k
         pend = pend - k
 
@@ -451,8 +526,7 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
             inter.update(env=env, ac_fed=fed, ac_fill0=fill0)
         return inter
 
-    def ac_round_fn(ops, round_done):
-        buf, avg_f, avg_l, calls, last_full = ops
+    def round_body(buf, avg_f, avg_l, calls, last_full):
         r = autocorrelation_magnitude(buf[..., :ac_fft])
         calls1 = calls + 1
         new = (accumulate_running_mean(avg_f, r[..., fw_off:fw_off + fw_len], calls1),
@@ -462,8 +536,14 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
         # the leftover (one block; ac_round >= n, so the ranges are apart)
         # to the front of the ring
         m = buf.shape[-1] - ac_round
-        buf[..., :m] = torch.where(round_done[..., None], buf[..., ac_round:], buf[..., :m])
-        return (buf,) + _select(round_done, new, (avg_f, avg_l, calls, last_full))
+        _write_taken(buf[..., :m], buf[..., ac_round:])
+        return new
+
+    def no_round(buf, avg_f, avg_l, calls, last_full):
+        return avg_f, avg_l, calls, last_full
+
+    def ac_round_fn(ops, round_done):
+        return (ops[0],) + _cond(round_done, round_body, no_round, ops)
 
     def emit_fn(carry, window, motionblur):
         screen, ag, sx, sy, pll = carry
@@ -476,11 +556,12 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
 
     def emit_chain(ops):
         """Every emit slot in stream order: slot k post-processes the fold
-        buffer's k-th frame every block, and commits where fill2 >=
-        (k+1)*fp, the carried state chained through; then one leftover
-        move from emitted*fp to the front (onto itself when nothing was
-        emitted). Returns (ops', frames, valid): frames [..., H, W] and
-        valid [...] for K == 1, [..., K, H, W] and [..., K] for K > 1."""
+        buffer's k-th frame where fill2 >= (k+1)*fp (a _cond; the window is
+        sliced outside it, read-only, as the JAX step slices it), the
+        carried state chained through; then one leftover move from
+        emitted*fp to the front (onto itself when nothing was emitted).
+        Returns (ops', frames, valid): frames [..., H, W] and valid [...]
+        for K == 1, [..., K, H, W] and [..., K] for K > 1."""
         framebuf, fill2, screen, ag, sx, sy, pll, motionblur = ops
         lead = framebuf.shape[:-1]
         carry = (screen, ag, sx, sy, pll)
@@ -488,8 +569,8 @@ def _make_step_parts(blocks: _Blocks, ac_write_external: bool = False,
         for slot in range(k_frames):
             ek = fill2 >= (slot + 1) * fp
             window = framebuf[..., slot * fp:(slot + 1) * fp].reshape(lead + (h, w))
-            carry, fk = _select(ek, emit_fn(carry, window, motionblur),
-                                no_emit_fn(carry, window))
+            carry, fk = _cond(ek, functools.partial(emit_fn, motionblur=motionblur), no_emit_fn,
+                              (carry, window))
             frames.append(fk)
             valids.append(ek)
         valid = torch.stack(valids, dim=-1)
@@ -612,10 +693,13 @@ class ChannelsStep(_Blocks):
         fed rewrites its own values (the JAX write_shared and
         write_per_channel branches in one operation, with no branch);
       - cond_mode="unrolled": per channel the round and the emit chain on
-        its row slices, behind selects; cond_mode="batched": the round and
-        the emit chain ONCE over the channel axis, each committed per
-        channel with a [C] predicate (jax.vmap(ac_round_fn) and
-        jax.vmap(emit_fn) there);
+        its row slices, each behind that channel's own _cond (IF nodes in a
+        captured graph: only the channels that cross a round or frame
+        boundary run a body, as in the JAX hybrid step);
+        cond_mode="batched": the round and the emit chain ONCE over the
+        channel axis behind a _cond on any() of the [C] predicate, committed
+        per channel inside (the JAX gated forms' any()-gated
+        jax.vmap(ac_round_fn) and jax.vmap(emit_fn));
       - assemble over the channel axis.
 
     It takes a stacked state (every leaf with a leading channel axis C, rows

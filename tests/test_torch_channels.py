@@ -220,6 +220,42 @@ def test_hybrid_multiframe_matches_jax_and_single_channel():
         assert int(states.frame_count[c]) == int(s.frame_count)
 
 
+def test_multi_step_multiframe_matches_jax():
+    """make_multi_step at K == 3 (49152-sample blocks): the bodies once over
+    the channel axis at every emit slot, against the JAX vmap(step) block
+    by block, a drop on channel 1 desynchronising its frame cadence."""
+    jcfg, tcfg = _configs(BIG)
+    assert tcfg.frames_per_block == 3
+    seen = compare(jax.jit(jpipe.make_multi_step(jcfg, JParams())),
+                   tpipe.make_multi_step(tcfg, Params(), device="cpu"), j_stack_states(jcfg, C),
+                   stack_states(tcfg, C, device="cpu"), _blocks(6, BIG, 45), drop_at=2)
+    assert seen["frames"] >= 6 * C and seen["rounds"] > 0
+
+
+def test_batched_bodies_equal_unrolled_multiframe():
+    """ChannelsStep(cond_mode="batched") at K == 3 (make_multi_step's form)
+    equals cond_mode="unrolled" bit for bit in every output and state leaf,
+    a drop on channel 1 included."""
+    _, tcfg = _configs(BIG)
+    assert tcfg.frames_per_block == 3
+    steps = [tpipe.ChannelsStep(tcfg, Params(), C, "cpu", cond_mode=m)
+             for m in ("batched", "unrolled")]
+    states = [stack_states(tcfg, C, device="cpu") for _ in steps]
+    frames = rounds = 0
+    for b, raws in enumerate(_blocks(6, BIG, 45)):
+        outs = []
+        for i, step in enumerate(steps):
+            states[i], out = step(states[i], torch.from_numpy(raws), _ctl(_drops(b, 2)))
+            outs.append(out)
+        for name, a, b2 in zip(tpipe.StepOutputs._fields, *outs):
+            assert a.dtype == b2.dtype and torch.equal(a, b2), (b, name)
+        for a, b2 in zip(state_leaves(states[0]), state_leaves(states[1])):
+            assert torch.equal(a, b2), b
+        frames += int(outs[0].frame_valid.sum())
+        rounds += int(outs[0].ac_plot_valid.sum())
+    assert frames >= 6 * C and rounds > 0
+
+
 @pytest.mark.parametrize("with_drop", [False, True])
 def test_stacked_demod_bit_identical(with_drop):
     """demod_mode="stacked" gives, bit for bit, every output and state leaf

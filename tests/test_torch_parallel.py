@@ -560,6 +560,33 @@ def test_channel_row_bounds_balanced():
         channel_row_bounds(4, 0)
 
 
+def test_init_distributed_binds_the_reference_call(monkeypatch):
+    """The JAX package's three-argument call (coordinator, num_processes,
+    process_id) binds to the port's init_distributed and brings up one rank
+    per card over nccl; gloo stays explicit."""
+    import inspect
+
+    from tempestsdr_tpu.parallel.distributed import init_distributed as j_init_distributed
+    from tempestsdr_tpu_torch.parallel import distributed
+
+    args = ("h:1234", 4, 3)
+    inspect.signature(j_init_distributed).bind(*args)
+    assert inspect.signature(distributed.init_distributed).bind(*args).arguments == dict(
+        zip(("coordinator", "num_processes", "process_id"), args))
+    calls, cards = [], []
+    monkeypatch.setattr(distributed.dist, "init_process_group",
+                        lambda backend, **kw: calls.append((backend, kw)))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device", cards.append)
+    distributed.init_distributed(*args)
+    distributed.init_distributed("file:///x", 2, 1, backend="gloo")
+    assert calls == [("nccl", dict(init_method="tcp://h:1234", world_size=4, rank=3)),
+                     ("gloo", dict(init_method="file:///x", world_size=2, rank=1))]
+    assert cards == [1]
+    with pytest.raises(ValueError):
+        distributed.init_distributed(*args, backend="mpi")
+
+
 def test_local_channel_slice_mock_multi_host():
     """The duck-typed two-host mock of tests/test_parallel.py:522-557: the
     function reads only .devices (each with .process_index) and the mesh's
