@@ -89,7 +89,17 @@
    every frame the eager step's, the branch bodies by kernel name); its
    per-block host split of upload and replay, the packed fetch and the
    downloads; its busy share under profile_trace; and a simlive source
-   (native ring) through Session;
+   (native ring) through Session; then the sharded receiver on 4 gloo
+   ranks sharing the card: K1's range entry against its plain version,
+   and the time-sharded step at 64 MS/s (T = 4; default, FIR 31 and
+   nearest-neighbour), the 2 x 2 grid and the channel mesh 4 x 2 at config
+   5, each rank holding its frames against the single-card reference and
+   reporting its eager select-form step and its captured step (stages
+   replayed as CUDA graphs between the collectives, the back half's
+   branches IF nodes; the channel mesh one ChannelRunner replay a block)
+   in turns, every replay bit for bit the eager step, the bodies by
+   device counters against the rounds and frames, K1's entries by the
+   profiler, each graph's nodes and the capture's memory;
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -154,6 +164,7 @@ from tempestsdr_tpu_torch.parallel import (  # noqa: E402
     make_time_sharded_step,
     stack_states,
 )
+from tempestsdr_tpu_torch.parallel.channels import ChannelMeshStep  # noqa: E402
 from tempestsdr_tpu_torch.parallel.launch import RankPool  # noqa: E402
 from tempestsdr_tpu_torch.sources.base import Source, SourceBlock, load_source  # noqa: E402
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
@@ -174,7 +185,7 @@ from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     resolve_batch_blocks,
     warm_compile_step,
 )
-from tempestsdr_tpu_torch.stream.graph import BlockRunner, ChannelRunner  # noqa: E402
+from tempestsdr_tpu_torch.stream.graph import BlockRunner, ChannelRunner, Stage  # noqa: E402
 from tempestsdr_tpu_torch.stream.state import StepOutputs, init_state, state_leaves  # noqa: E402
 from tempestsdr_tpu_torch.utils.profiling import (  # noqa: E402
     measure_dispatch_floor,
@@ -1563,70 +1574,176 @@ def _digest(arrays):
     return h.hexdigest()
 
 
-def _drive(step, state, raws, device):
-    """The rank's step over its pre-uploaded inputs, launch counts zeroed
-    just before and read just after; host ms per block (ending in a
-    synchronize). Returns (per block (ints, frame, valid), counts, ms,
-    digest of every output and the final state)."""
-    raws = [torch.from_numpy(np.ascontiguousarray(r)).to(device) for r in raws]
+def _pass(step, state, raws):
+    """One pass of a rank's step over its pre-uploaded blocks from `state`:
+    per block its integers, read right after the call (a captured step's
+    state is the runner's, rewritten by the next call), and its outputs
+    (each call's own), host ms per block ending in a synchronize, and the
+    final state's leaves (copied)."""
+    outs, ints, ms = [], [], []
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    kept, ms = [], []
     for raw in raws:
         t0 = time.perf_counter()
         state, out = step(state, raw, StepControls())
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        kept.append((state, out))
-    launches = counts()
-    outs, every = [], []
-    for st, out in kept:
-        outs.append((_ints(st, out), out.frame.cpu().numpy(), out.frame_valid.cpu().numpy()))
-        every += [x.cpu().numpy() for x in out]
-    every += [x.cpu().numpy() for x in state_leaves(state)]
-    return outs, launches, ms, _digest(every)
+        ints.append(_ints(state, out))
+        outs.append(out)
+    return dict(outs=outs, ints=ints, ms=ms, state=[x.clone() for x in state_leaves(state)])
+
+
+def _split_pass(step, state, raws):
+    """A pass with its host ms a block split (host clock): waiting for the
+    card before each exchange (a synchronize: the stage's device work and
+    the launches queued ahead of it), the exchanges themselves (gloo's
+    copies through host memory and the collective), and the rest (the
+    launches or replays, the copies in and out)."""
+    spent = dict(wait=0.0, exchange=0.0)
+    real = Stage.exchange
+
+    def exchange(self, ctxs, into=False):
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        real(self, ctxs, into)
+        spent["wait"] += t1 - t0
+        spent["exchange"] += time.perf_counter() - t1
+
+    Stage.exchange = exchange
+    try:
+        ms = _pass(step, state, raws)["ms"]
+    finally:
+        Stage.exchange = real
+    n = len(raws)
+    wait, xch = spent["wait"] * 1e3 / n, spent["exchange"] * 1e3 / n
+    return dict(wall=sum(ms) / n, wait_for_card=wait, exchanges=xch,
+                rest=sum(ms) / n - wait - xch)
+
+
+def _equal_passes(a, b):
+    """Every output of every block and every final state leaf bit for bit."""
+    return (all(torch.equal(x, y) for o, w in zip(a["outs"], b["outs"]) for x, y in zip(o, w))
+            and all(torch.equal(x, y) for x, y in zip(a["state"], b["state"])))
+
+
+def _rank_case(eager, captured, new_state, raws, evaluations, ref_dir, tag, ref_ints, pick):
+    """One sharded case on this rank: the captured step's first call (its
+    capture, with a device counter in every branch body, counted_bodies)
+    and the memory it took; then from fresh states, in turns, the eager
+    select-form step, the captured step, the eager step and the captured
+    step again (host ms a block each), the later captured pass bit for bit
+    the later eager one; then the captured step under the profiler (K1's
+    entries by kernel name), bit for bit the eager pass too, with the
+    bodies its counters saw held to its completed rounds and emitted
+    frames (`evaluations`: each branch's evaluations in the pass). Frames
+    held to the reference (integers exact), and a digest of the captured
+    pass's outputs and final state."""
+    raws = [torch.from_numpy(np.ascontiguousarray(r)).to(DEV) for r in raws]
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with counted_bodies() as counters:
+        captured(new_state(), raws[0], StepControls())
+    torch.cuda.synchronize()
+    memory = dict(after_capture_bytes=torch.cuda.memory_allocated(DEV) - mem0,
+                  capture_peak_bytes=torch.cuda.max_memory_allocated(DEV) - mem0)
+    passes = {}
+    for turn in ("eager 1", "captured 1", "eager 2", "captured 2"):
+        step = eager if turn.startswith("eager") else captured
+        passes[turn] = _pass(step, new_state(), raws)
+    want = passes["eager 2"]
+    split = {form: _split_pass(step, new_state(), raws)
+             for form, step in (("eager", eager), ("captured", captured))}
+    counters.cnt.zero_()
+    with card_counts() as trace:
+        profiled = _pass(captured, new_state(), raws)
+    got = StepOutputs(*(torch.stack(list(v)) for v in zip(*profiled["outs"])))
+    gated = isinstance(captured, ChannelMeshStep) and captured.cond_mode == "batched"
+    bodies = held_counts(counters, got, gated, evaluations, 0, tag)
+    mine = passes["captured 2"]
+    outs = [(ints, out.frame.cpu().numpy(), out.frame_valid.cpu().numpy())
+            for ints, out in zip(mine["ints"], mine["outs"])]
+    same, worst, frames = _hold(outs, ref_dir, tag, ref_ints, pick)
+    every = [x.cpu().numpy() for out in mine["outs"] for x in out]
+    every += [x.cpu().numpy() for x in mine["state"]]
+    n = len(raws)
+    return dict(
+        ints_equal=same, max_abs=worst, frames=frames,
+        replays_equal_eager=_equal_passes(mine, want) and _equal_passes(profiled, want),
+        launches={w: trace[w] for w in KERNEL_NAMES}, blocks=n,
+        eager_ms=passes["eager 1"]["ms"] + want["ms"],
+        captured_ms=passes["captured 1"]["ms"] + mine["ms"],
+        split_ms_per_block=split,
+        under_profiler=dict(device_ms_per_block=trace.device_ms / n,
+                            transfer_ms_per_block=trace.transfer_ms / n,
+                            wall_ms_per_block=trace.wall_ms / n,
+                            top_kernels_ms_per_block={
+                                k[:60]: v / n for k, v in sorted(trace.device_ms_by.items(),
+                                                                 key=lambda kv: -kv[1])[:4]}),
+        census=_census(captured), memory=memory,
+        bodies=dict(rounds=int(got.ac_plot_valid.sum()), frames=int(got.frame_valid.sum()),
+                    counted=bodies),
+        digest=_digest(every))
+
+
+def _census(step):
+    """The node counts of a captured sharded step (less the body counters'
+    nodes, one a body): per stage for a StagedRunner, the one graph of a
+    channel step's runner."""
+    if isinstance(step, ChannelMeshStep):
+        graphs = [step.runner._graphs[torch.uint8]]
+        counts = [step.runner.census()]
+    else:
+        graphs = next(iter(step._staged.values())).graphs
+        counts = step.census()
+    for g, c in zip(graphs, counts):
+        bodies = len(g.branches.bodies) if g.branches is not None else 0
+        c.update(body_nodes=c["body_nodes"] - bodies, all_nodes=c["all_nodes"] - bodies)
+    return counts
 
 
 def rank_time_sharded(cfg, params, blocks, ref_dir, tag, ref_ints):
-    """One rank of the time-sharded step at T = T_RANKS on this card."""
+    """One rank of the time-sharded step at T = T_RANKS on this card: its
+    eager step (TimeShardedStep) against its captured stages
+    (make_time_sharded_step)."""
     mesh = make_mesh(1, T_RANKS, device=DEV)
     step = make_time_sharded_step(cfg, params, mesh)
     S, t = cfg.block_samples // T_RANKS, mesh.time_index
-    state = init_state(cfg, params.fir_lowpass_taps, device=mesh.device)
-    outs, launches, ms, digest = _drive(step, state, [b[2 * S * t:2 * S * (t + 1)] for b in blocks],
-                                        mesh.device)
-    same, worst, frames = _hold(outs, ref_dir, tag, ref_ints)
-    return dict(device=str(mesh.device), ints_equal=same, max_abs=worst, frames=frames,
-                launches=launches, ms=ms, digest=digest)
+    res = _rank_case(step.program, step,
+                     lambda: init_state(cfg, params.fir_lowpass_taps, device=mesh.device),
+                     [b[2 * S * t:2 * S * (t + 1)] for b in blocks], (len(blocks), len(blocks)),
+                     ref_dir, tag, ref_ints, lambda a: a)
+    return dict(device=str(mesh.device), **res)
 
 
 def rank_grid(cfg, params, per_ch_blocks, ref_dir, ref_ints):
-    """One rank of the 2 x 2 grid: its row's channel, time-sharded over the row."""
+    """One rank of the 2 x 2 grid: its row's channel, time-sharded over the
+    row, eager (GridStep) and captured (make_grid_step)."""
     mesh = make_mesh(2, T_RANKS // 2, device=DEV)
     step = make_grid_step(cfg, params, mesh)
     (r, t), S = mesh.coords, cfg.block_samples // (T_RANKS // 2)
-    state = stack_states(cfg, 1, device=mesh.device)
-    outs, launches, ms, digest = _drive(
-        step, state, [b[None, 2 * S * t:2 * S * (t + 1)] for b in per_ch_blocks[r]], mesh.device)
-    same, worst, frames = _hold(outs, ref_dir, f"grid{r}", ref_ints[r],
-                                pick=lambda a: a[None] if a.ndim in (0, 2) else a)
-    return dict(channel=r, ints_equal=same, max_abs=worst, frames=frames, launches=launches,
-                ms=ms, digest=digest)
+    nb = len(per_ch_blocks[r])
+    res = _rank_case(step.program, step, lambda: stack_states(cfg, 1, device=mesh.device),
+                     [b[None, 2 * S * t:2 * S * (t + 1)] for b in per_ch_blocks[r]], (nb, nb),
+                     ref_dir, f"grid{r}", ref_ints[r],
+                     lambda a: a[None] if a.ndim in (0, 2) else a)
+    return dict(channel=r, **res)
 
 
 def rank_channels(cfg, params, n_ch, blocks, ref_dir, ref_ints):
     """One rank of the channel mesh (T_RANKS 'ch' rows): its n_ch // T_RANKS
-    channels through make_channel_step, held against the single-process
-    hybrid step over all n_ch channels."""
+    channels through make_channel_step (one ChannelRunner replay a block),
+    against its eager channel step and the single-process hybrid step over
+    all n_ch channels."""
     mesh = make_mesh(T_RANKS, 1, device=DEV)
     step = make_channel_step(cfg, params, mesh, n_ch)
     per = n_ch // T_RANKS
     mine = slice(mesh.ch_index * per, (mesh.ch_index + 1) * per)
-    state = stack_states(cfg, per, device=mesh.device)
-    outs, launches, ms, digest = _drive(step, state, [b[mine] for b in blocks], mesh.device)
-    same, worst, frames = _hold(outs, ref_dir, "channels", ref_ints, pick=lambda a: a[mine])
-    return dict(channels=[mine.start, mine.stop], ints_equal=same, max_abs=worst, frames=frames,
-                launches=launches, ms=ms, digest=digest)
+    nb = len(blocks)
+    res = _rank_case(step.step, step, lambda: stack_states(cfg, per, device=mesh.device),
+                     [b[mine] for b in blocks], (nb * per, nb * per * cfg.frames_per_block),
+                     ref_dir, "channels", ref_ints, lambda a: a[mine])
+    return dict(channels=[mine.start, mine.stop], **res)
 
 
 def check_range_entry(cfg, T=T_RANKS):
@@ -1753,8 +1870,9 @@ def tui_over_pty(cfg, n_blocks=3):
 
 
 def sharded_phase(smi):
-    """Phase 10; returns K1's launches per rank on each sharded path and the
-    range entry's row."""
+    """Phase 10; returns K1's launches per rank on each sharded path (the
+    captured steps', by kernel name under the profiler) and the range
+    entry's row."""
     g64 = GEOMETRIES["64MS/s"]
     rng_row = check_range_entry(g64)
     print("K1 range entry (64MS/s, T=4 shards) " + json.dumps(rng_row))
@@ -1780,6 +1898,7 @@ def sharded_phase(smi):
                                                     per_block * nb})
             by_path["time-sharded T=4 64MS/s, 12 blocks (range entry, each rank)"] = \
                 rows["time-sharded"]["launches"]["box_resample_range_strided_cuda"]
+            assert by_path["time-sharded T=4 64MS/s, 12 blocks (range entry, each rank)"] == 12
 
             # the grid: 2 channels of their own raster widths, each over 2 ranks
             srcs = channel_sources(g64, 2, 4)
@@ -1804,33 +1923,47 @@ def sharded_phase(smi):
             by_path["channel mesh 4x2 16MS/s, 4 blocks (block entry, each rank)"] = \
                 4 * N_CH // T_RANKS
     for name, row in rows.items():
-        print(f"sharded {name} " + json.dumps(row))
-    print(f"sharded, parity only (one card shows no speed-up from sharding; host clock; "
-          f"card {smi}): " + json.dumps({name: row["ms_per_block_median"]
-                                         for name, row in rows.items()}))
+        print(f"sharded {name} " + json.dumps(dict(card=smi, **row)))
+    print(f"sharded, ms a block per rank, eager select form / captured stages in turns "
+          f"(parity only: one card shows no speed-up from sharding; host clock; card {smi}): "
+          + json.dumps({name: [row["eager_ms_per_block_median"],
+                               row["captured_ms_per_block_median"]]
+                        for name, row in rows.items()}))
     print("tui over a pty (8MS/s) " + json.dumps(tui_over_pty(GEOMETRIES["8MS/s"])))
     return by_path, rng_row
 
 
 def hold_ranks(name, res, launches, groups=lambda r: 0, tol=SHARD_TOL):
     """Every rank held: integers equal to the reference's, frames within
-    tol, the path's kernel launched exactly `launches` times in each rank
-    and no other kernel, and ranks that hold the same replica (same
-    groups(r)) equal bit for bit."""
+    tol, every replay equal to the rank's eager step bit for bit, the
+    path's kernel launched exactly `launches` times in each rank's profiled
+    captured pass and no other kernel, and ranks that hold the same replica
+    (same groups(r)) equal bit for bit. Returns the case's row: per rank
+    the eager and captured ms a block (medians of two passes each, in
+    turns), launches a block, the census, memory and bodies."""
     for rank, r in enumerate(res):
         assert r["ints_equal"], (name, rank, "integers differ from the reference")
         assert r["frames"] > 0 and r["max_abs"] <= tol, (name, rank, r["frames"], r["max_abs"])
+        assert r["replays_equal_eager"], (name, rank, "a replay differs from the eager step")
         assert r["launches"] == {k: launches.get(k, 0) for k in r["launches"]}, \
             (name, rank, r["launches"])
     replicas = {}
     for r in res:
         replicas.setdefault(groups(r), set()).add(r["digest"])
     assert all(len(d) == 1 for d in replicas.values()), (name, "ranks of one replica differ")
-    ms = [m for r in res for m in r["ms"][1:]]  # the first block carries the warm-up
-    return dict(ranks=len(res), frames_each=[r["frames"] for r in res],
-                max_abs=max(r["max_abs"] for r in res), launches=res[0]["launches"],
-                ms_per_block_median=float(np.median(ms)), ms_per_block_max=float(np.max(ms)),
-                replicas_equal=True)
+    return dict(
+        ranks=len(res), frames_each=[r["frames"] for r in res],
+        max_abs=max(r["max_abs"] for r in res), replays_equal_eager=True, replicas_equal=True,
+        launches={k: v for k, v in res[0]["launches"].items() if v},
+        launches_per_block={k: v / res[0]["blocks"] for k, v in res[0]["launches"].items() if v},
+        eager_ms_per_block=[float(np.median(r["eager_ms"])) for r in res],
+        captured_ms_per_block=[float(np.median(r["captured_ms"])) for r in res],
+        eager_ms_per_block_median=float(np.median([m for r in res for m in r["eager_ms"]])),
+        captured_ms_per_block_median=float(np.median([m for r in res for m in r["captured_ms"]])),
+        split_ms_per_block=[r["split_ms_per_block"] for r in res],
+        under_profiler=[r["under_profiler"] for r in res],
+        census=[r["census"] for r in res], memory=[r["memory"] for r in res],
+        bodies=[r["bodies"] for r in res])
 
 
 # ---- the graph step --------------------------------------------------------

@@ -72,6 +72,15 @@ class Mesh:
         r, t = self._position()
         return torch.device(self.devices[r, t].device)
 
+    @staticmethod
+    def _not_captured(what: str) -> None:
+        """A collective is never captured into a CUDA graph: a replay would
+        not run it (the sharded steps run their collectives between their
+        stages' replays, stream.graph.StagedRunner)."""
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"Mesh.{what} called while the current stream captures a "
+                               "CUDA graph: run the collective between the graph's replays")
+
     def _to_backend(self, x: torch.Tensor) -> torch.Tensor:
         """A contiguous copy the backend takes: in host memory under gloo."""
         if self.backend == "gloo" and x.device.type != "cpu":
@@ -81,6 +90,7 @@ class Mesh:
     def all_gather(self, x: torch.Tensor, tiled: bool = False) -> torch.Tensor:
         """Every rank of the row's x, stacked on a new leading axis in 'time'
         order ([T, ...]), or concatenated along axis 0 when tiled."""
+        self._not_captured("all_gather")
         T = self.shape["time"]
         self._position()
         if T == 1:
@@ -93,6 +103,7 @@ class Mesh:
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of the row's x, on every rank of the row."""
+        self._not_captured("psum")
         self._position()
         if self.shape["time"] == 1:
             return x

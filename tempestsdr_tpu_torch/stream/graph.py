@@ -44,12 +44,21 @@ state (parallel.stack_states); packed is float64 [C, PACKED + K].
 The graph's state is one per runner, so one caller at a time may hold it:
 lease() marks the runner taken (False when another holder has it) and
 release(state) hands the holder its state in tensors of its own.
+
+StagedRunner(program) runs a step that a collective cuts into stages (the
+sharded steps, parallel/timeshard.py): on the card each stage is a CUDA
+graph of its own, captured once per raw dtype, and a call replays them in
+order with the program's collectives run eagerly between them, each reading
+a stage's static outputs and writing the next stage's static inputs; the
+last stage is captured inside branch_nodes, so its branches are IF nodes.
+On the CPU it runs the program's eager composition of the same stages.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -163,21 +172,20 @@ class BlockRunner:
         if not self.graphed:
             state, out = self._body(state, raws.to(self.device), ctl.to(self.device))
             return state, out, packed_values(out)
-        g = self._graphs.get(raws.dtype)
-        if g is None:
-            g = self._graphs[raws.dtype] = self._capture(raws.dtype)
-        self._copy_in(state)
+        g = self.prepare(raws.dtype)
+        _copy_in(self._static, state)
         g.raws.copy_(raws)
         g.ctl.copy_(ctl)
         g.graph.replay()
         return self._static, g.outputs, g.packed
 
-    def _copy_in(self, state: StreamState) -> None:
-        if not state_compatible(state, self._static):
-            raise ValueError("the state does not match this runner's geometry and params")
-        for dst, src in zip(state_leaves(self._static), state_leaves(state)):
-            if src is not dst:
-                dst.copy_(src)
+    def prepare(self, dtype) -> _Graph:
+        """The graph for raws of `dtype`, captured first if this runner has
+        none yet (run does this at first use; the capture synchronizes)."""
+        g = self._graphs.get(dtype)
+        if g is None:
+            g = self._graphs[dtype] = self._capture(dtype)
+        return g
 
     def _capture(self, dtype) -> _Graph:
         cfg, dev, k = self.config, self.device, self.n_blocks
@@ -200,9 +208,7 @@ class BlockRunner:
                 torch.cuda.graph(graph, capture_error_mode="thread_local"):
             state, outputs = self._body(self._static, raws, ctl)
             packed = packed_values(outputs)
-            for dst, src in zip(state_leaves(self._static), state_leaves(state)):
-                if src is not dst:
-                    dst.copy_(src)
+            _write_leaves(self._static, state)
         graph.instantiate()
         return _Graph(graph, raws, ctl, outputs, packed, branches)
 
@@ -238,6 +244,212 @@ class ChannelRunner(BlockRunner):
 
     def _body(self, state, raws, ctl, warm_up=False):
         return self.step(state, raws, _block_controls(ctl))
+
+
+@contextlib.contextmanager
+def sync_debug(mode):
+    """torch.cuda.set_sync_debug_mode(mode) within ("error": a synchronizing
+    operation raises), the mode before it after."""
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class Stage(NamedTuple):
+    """One stretch of a step between two collective points. run(ctx) returns
+    the values one local channel's context gains (a dict of tensors and
+    tuples of tensors); then each exchange (source key, collective,
+    destination key), in order, sets ctx[destination] to the collective of
+    ctx[source]."""
+
+    run: Callable
+    exchanges: tuple = ()
+
+    def exchange(self, ctxs, into: bool = False) -> None:
+        """The exchanges over every channel's context; into: write each
+        result into the destination's tensor (a replay's static input)."""
+        for ctx in ctxs:
+            for src, collective, dst in self.exchanges:
+                got = collective(ctx[src])
+                if into:
+                    ctx[dst].copy_(got)
+                else:
+                    ctx[dst] = got
+
+
+class GraphStages:
+    """How StagedRunner captures and replays its stages on a card: the
+    warm-up on a side stream, one CUDA graph a stage (the last inside
+    graph_cond.branch_nodes), replays under set_sync_debug_mode("error") and
+    the exchanges outside it. A test hands the runner another object with
+    these members (sync_debug, warm_up, capture) to follow the runner's
+    data flow on the CPU."""
+
+    def __init__(self, device):
+        self.device = device
+        self.sync_debug = sync_debug
+
+    @contextlib.contextmanager
+    def warm_up(self):
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            yield
+        main.wait_stream(side)
+
+    def capture(self, fn, nodes: bool):
+        """fn() captured into a graph: (_StageGraph, what fn returned)."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with (graph_cond.branch_nodes(self.device) if nodes else
+              contextlib.nullcontext()) as branches, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = fn()
+        graph.instantiate()
+        return _StageGraph(graph, branches), out
+
+
+class _StageGraph(NamedTuple):
+    """A stage's graph and its branch nodes (None without: their bodies'
+    memory pool lives as long as the graph)."""
+
+    graph: torch.cuda.CUDAGraph
+    branches: graph_cond.Branches | None
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+    def census(self) -> dict:
+        bodies = self.branches.bodies if self.branches is not None else []
+        return graph_cond.census(self.graph.raw_cuda_graph(), bodies)
+
+
+class _Staged(NamedTuple):
+    """One capture of a staged program: a graph per stage, the static raw
+    block and controls, the channels' static contexts and the static
+    outputs."""
+
+    graphs: list
+    raw: torch.Tensor
+    ctl: StepControls
+    ctxs: list
+    outputs: StepOutputs
+
+
+class StagedRunner:
+    """A step cut into stages by its collectives (see the module docstring)
+    as one callable, step(state, raw, controls) -> (state', outputs).
+
+    The program gives: device; stages (Stage, in order); inputs(raw,
+    controls) -> (raw, controls) as tensors on its device (validated);
+    contexts(state, raw, controls) -> a context dict per local channel;
+    outputs(contexts) -> StepOutputs of a finished call; and its own
+    __call__, the eager composition of the stages, which runs on the CPU.
+
+    On the card the first call for a raw dtype and shape runs the program
+    once on a scratch copy of the state (on a side stream: the cuFFT plans,
+    the kernels' libraries and the allocator's first blocks are made outside
+    the graphs; its collectives give each exchange's shape), then captures
+    each stage into a graph over static tensors, the last stage with its
+    branches as IF nodes and the state written back into the runner's
+    state. A call copies in the leaves of `state` that are not the runner's,
+    the raw block and the controls, replays the stages with the exchanges
+    between them, and returns the runner's state (as the JAX step donates
+    its own) and a device-side copy of the outputs (the caller's across
+    calls). Every replay runs under set_sync_debug_mode("error"); a failed
+    capture or replay raises, and nothing falls back to the eager step.
+    Every rank of the mesh calls it together, as the program's own step."""
+
+    def __init__(self, program, stages=None):
+        self.program, self.device = program, program.device
+        if stages is None and self.device.type == "cuda":
+            stages = GraphStages(self.device)
+        self.stages = stages
+        self._staged: dict = {}  # (raw dtype, raw shape) -> _Staged
+        self._static: StreamState | None = None
+
+    def __call__(self, state: StreamState, raw, controls: StepControls = StepControls()):
+        prog = self.program
+        if self.stages is None:
+            return prog(state, raw, controls)
+        raw, ctl = prog.inputs(raw, controls)
+        key = (raw.dtype, tuple(raw.shape))
+        s = self._staged.get(key)
+        if s is None:
+            s = self._staged[key] = self._capture(state, raw, ctl)
+        _copy_in(self._static, state)
+        debug = self.stages.sync_debug
+        with debug("error"):
+            s.raw.copy_(raw)
+            for dst, src in zip(s.ctl, ctl):
+                dst.copy_(src)
+        for graph, stage in zip(s.graphs, prog.stages):
+            with debug("error"):
+                graph.replay()
+            with debug("default"):
+                stage.exchange(s.ctxs, into=True)
+        with debug("error"):
+            outputs = StepOutputs(*(x.clone() for x in s.outputs))
+        return self._static, outputs
+
+    def _capture(self, state: StreamState, raw, ctl) -> _Staged:
+        prog, stages = self.program, self.stages
+        if self._static is None:
+            self._static = type(state)(*_map_leaves(state, lambda x: x.to(self.device,
+                                                                          copy=True)))
+        raw_s = torch.zeros_like(raw)
+        ctl_s = StepControls(*(torch.zeros_like(v) for v in ctl))
+        with stages.warm_up():
+            scratch = type(state)(*_map_leaves(self._static, torch.clone))
+            warm = prog.contexts(scratch, raw_s, ctl_s)
+            for stage in prog.stages:
+                for ctx in warm:
+                    ctx.update(stage.run(ctx))
+                stage.exchange(warm)
+        ctxs = prog.contexts(self._static, raw_s, ctl_s)
+        graphs, outputs = [], None
+        for i, stage in enumerate(prog.stages):
+            last = i == len(prog.stages) - 1
+
+            def body(stage=stage, last=last):
+                new = [stage.run(ctx) for ctx in ctxs]
+                if not last:
+                    return new, None
+                for ctx, got in zip(ctxs, new):
+                    _write_leaves(ctx["state"], got["new_state"])
+                return new, prog.outputs(new)
+
+            graph, (new, outputs) = stages.capture(body, nodes=last)
+            graphs.append(graph)
+            for ctx, got in zip(ctxs, new):
+                ctx.update(got)
+            for c, ctx in enumerate(ctxs):
+                for _, _, dst in stage.exchanges:
+                    ctx[dst] = torch.zeros_like(warm[c][dst])
+        return _Staged(graphs, raw_s, ctl_s, ctxs, outputs)
+
+    def census(self, dtype=torch.uint8) -> list:
+        """Per stage, the node counts of the graphs captured for raws of
+        `dtype` (graph_cond.census: parent, IF and body nodes)."""
+        s = next(v for (d, _), v in self._staged.items() if d == dtype)
+        return [g.census() for g in s.graphs]
+
+
+def _write_leaves(dst: StreamState, src: StreamState) -> None:
+    """Every leaf of src copied into dst's, where the two are not one tensor."""
+    for d, s in zip(state_leaves(dst), state_leaves(src)):
+        if s is not d:
+            d.copy_(s)
+
+
+def _copy_in(static: StreamState, state: StreamState) -> None:
+    """A caller's state into a runner's static one (its own leaves stay)."""
+    if not state_compatible(state, static):
+        raise ValueError("the state does not match this runner's geometry and params")
+    _write_leaves(static, state)
 
 
 def _map_leaves(state: StreamState, fn) -> list:

@@ -26,9 +26,10 @@ lax.cond of the JAX step is a _cond on its device predicate: the FFT round
 does not fire gives zeros) and the sync-skip shift (k > 0). Captured into
 a CUDA graph (stream/graph.py's runners), a _cond is a pair of IF nodes
 (kernels/graph_cond.py), so a replay runs only the taken branch, as XLA
-runs a lax.cond. Everywhere else (the CPU, the eager step on the card, the
-sharded steps) it is a select, as a vmap makes it: both branches run and
-torch.where commits the taken one. Every offset the JAX step traces (the
+runs a lax.cond (the sharded steps' back half too, captured between their
+collectives by stream.graph.StagedRunner). Everywhere else (the CPU, the
+eager step on the card) it is a select, as a vmap makes it: both branches
+run and torch.where commits the taken one. Every offset the JAX step traces (the
 ring write at fill0, the sync skip by k, the fold write at fill, the
 leftover move from emitted*frame_pixels, the autoshift roll) is device
 index arithmetic, base + arange, kept in range by the buffer lengths

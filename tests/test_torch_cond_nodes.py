@@ -6,8 +6,8 @@ on any() over the channels) is a pair of IF nodes (kernels/graph_cond.py):
 only the taken body runs, the untaken side writes into the taken body's
 output buffers, and a body's in-place writes (the ring's leftover move, the
 shifted pixels) happen only when it is taken. The nodes run only on a
-card. Here a test-local strategy puts a host `if` in the branch seam
-(pipeline._branch) that does what the nodes do: the taken side alone, or,
+card. Here a strategy (tests/torch_taken_only.py) puts a host `if` in the
+branch seam (pipeline._branch) that does what the nodes do: the taken side alone, or,
 when the branch is not taken, the untaken side written into output
 buffers that the taken body would have allocated, poisoned first (NaN, or
 a sentinel for integers and flags) so that any output the untaken side
@@ -26,9 +26,6 @@ nodes are built from: the taken body's outputs made its own
 in-place write of the select form, the node census's arithmetic on a
 stubbed node list, and the refusal of a branch captured outside a
 runner."""
-
-import contextlib
-import functools
 
 import numpy as np
 import pytest
@@ -51,6 +48,7 @@ from tempestsdr_tpu_torch.stream.pipeline import StepControls
 from tempestsdr_tpu_torch.stream.state import state_leaves
 
 import test_torch_channels as tch
+from torch_taken_only import TakenOnly, taken_only
 from test_torch_device_step import (  # noqa: F401 (one_torch_thread: autouse)
     AC_RTOL,
     CARRIES,
@@ -68,67 +66,6 @@ EVENTS = {  # block -> (samples dropped, sync shift)
     8192: {3: (0, 777), 6: (3000, 0), 11: (0, -1234)},
     BIG: {1: (0, 500), 3: (5000, 0), 5: (0, -777)},
 }
-POISON_INT = -7777
-
-
-def _site(fn) -> str:
-    """A branch's name: its taken body's (any:<name> for a gated one)."""
-    if isinstance(fn, functools.partial):
-        if fn.func is tpipe._both:
-            return "any:" + _site(fn.args[1])
-        return _site(fn.func)
-    return fn.__name__
-
-
-def _map(fn, tree):
-    if isinstance(tree, tuple):
-        vals = [_map(fn, t) for t in tree]
-        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
-    return fn(tree)
-
-
-def _poison(x: torch.Tensor) -> None:
-    if x.dtype == torch.bool:
-        x.fill_(True)
-    elif x.is_floating_point():
-        x.fill_(float("nan"))
-    else:
-        x.fill_(POISON_INT)
-
-
-class TakenOnly:
-    """The branch seam's host-if strategy (see the module docstring); seen
-    maps each branch to the sides it took."""
-
-    def __init__(self):
-        self.seen: dict[str, set] = {}
-
-    def __call__(self, pred, true_fn, false_fn, operands):
-        taken = bool(pred)
-        self.seen.setdefault(_site(true_fn), set()).add(taken)
-        if taken:
-            return graph_cond._owned(true_fn(*operands), operands)
-        if false_fn is None:  # the branch writes in place only
-            return ()
-        scratch = _map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, operands)
-        out = graph_cond._owned(true_fn(*scratch), scratch)
-        for x in graph_cond._leaves(out):
-            _poison(x)
-        graph_cond._write_into(out, false_fn(*operands))
-        return out
-
-
-@contextlib.contextmanager
-def taken_only(strategy):
-    """pipeline._branch is `strategy` inside."""
-    select = tpipe._branch
-    tpipe._branch = strategy
-    try:
-        yield
-    finally:
-        tpipe._branch = select
-
-
 class Paired:
     """A step run twice on the same inputs, in the select form on states of
     its own and with the taken-only strategy on the states it is given; the

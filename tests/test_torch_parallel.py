@@ -10,10 +10,18 @@ in this process, while the ranks work. Every time-sharded case is held
 against JAX's time-sharded step at the same T and against the port's
 single-channel step; the ranks' outputs must all be equal.
 
+The sharded steps are cut at their collectives into stages, which a card
+replays as CUDA graphs (stream.graph.StagedRunner). Here the staged steps
+are held bit for bit against a copy of the step as it was before the split
+(_unsplit_time_sharded), eagerly and through a StagedRunner whose graphs a
+CPU stand-in replays (EmulatedStages), also with the IF nodes' taken-only
+form installed in each rank (tests/torch_taken_only.py).
+
 The rank functions are pickled by reference, so the ranks import this
 module: JAX is imported only inside the functions this process runs.
 """
 
+import contextlib
 import hashlib
 from types import SimpleNamespace
 
@@ -191,6 +199,215 @@ def rank_guarded(cfg, params, blocks, per_ch_blocks, drop_at=9):
         got["frames"] += int(out.frame_valid.sum())
         got["rounds"] += int(out.ac_plot_valid.sum())
     return got
+
+
+# ---- the staged step against the step as it was before the split ---------
+
+
+def _unsplit_time_sharded(step, state, raw_seg, controls):
+    """TimeShardedStep.__call__ as it was before it was cut into stages at
+    its collectives: one body, the collectives inline (the reference the
+    staged forms are held to, bit for bit)."""
+    from tempestsdr_tpu_torch.config import FRAC_BITS as FB
+    from tempestsdr_tpu_torch.ops.demod import am_demod, normalize_iq
+    from tempestsdr_tpu_torch.ops.fir import fir_apply_block
+    from tempestsdr_tpu_torch.ops.resample import nn_resample_range, resample_counts
+    from tempestsdr_tpu_torch.stream.pipeline import controls_on
+
+    cfg, blocks, mesh = step.config, step.blocks, step.mesh
+    n, S, T, taps = cfg.block_samples, step.S, step.T, cfg.resample_taps
+    mpl = step.max_pix_local
+    t = mesh.time_index
+    raw = torch.as_tensor(raw_seg).to(step.device)
+    controls = controls_on(controls, step.device)
+    env = am_demod(normalize_iq(raw))
+    phase, drop_all = step.parts.drop_phase(state, controls.samples_dropped)
+    inv_fix = blocks.rate(state)
+    env_full = mesh.all_gather(env, tiled=True) if blocks.run_autocorr else env
+    fir_tail, env_rs = state.fir_tail, env
+    if blocks.fir_taps is not None:
+        k = blocks.fir_taps.shape[0] - 1
+        tails = mesh.all_gather(env[S - k:])
+        env_rs, _ = fir_apply_block(env, state.fir_tail if t == 0 else tails[t - 1],
+                                    blocks.fir_taps)
+        fir_tail = tails[T - 1].clone()
+    n_out, phase2 = resample_counts(phase, inv_fix, n)
+    n_out64 = n_out.to(torch.int64)
+    seg = t * S
+
+    def first_pixel(sample):
+        return torch.minimum(torch.clamp(-((-((sample << FB) - phase)) // inv_fix), min=0),
+                             n_out64)
+
+    p_start = torch.zeros_like(n_out64) if t == 0 else first_pixel(seg)
+    p_end = first_pixel(seg + S)
+    if step.nn_mode:
+        env_full_rs = env_full if (blocks.run_autocorr and blocks.fir_taps is None) \
+            else mesh.all_gather(env_rs, tiled=True)
+        pix_local = nn_resample_range(env_full_rs, n_out, p_start, p_end, n_samples=n,
+                                      max_pix=mpl)
+        new_tail = env_full_rs[n - taps:].clone()
+    else:
+        edges = mesh.all_gather(torch.cat([env_rs[:taps], env_rs[S - taps:]]))
+        left = state.tail if t == 0 else edges[t - 1, taps:]
+        right = edges[t + 1, :taps] if t < T - 1 else torch.zeros_like(state.tail)
+        x_local = torch.cat([left, env_rs, right])
+        new_tail = edges[T - 1, taps:].clone()
+        pix_local = step.range_resample(x_local, phase, inv_fix, p_start, p_end, seg,
+                                        max_pix=mpl, taps=taps, inv_nominal=cfg.samples_per_pixel)
+    mp = cfg.max_block_pixels
+    placed = torch.zeros((mp + mpl,), dtype=torch.float32, device=step.device)
+    placed.index_copy_(0, p_start + torch.arange(mpl, device=step.device), pix_local)
+    pixels = mesh.psum(placed[:mp])
+    inter = step.parts.pre_back(state, controls, drop_all, env_full, pixels, n_out, phase2,
+                                new_tail, fir_tail)
+    return step.parts.finish(state, inter)
+
+
+def _unsplit_grid(step, states, raws, controls):
+    """GridStep.__call__ as it was before the split: the unsplit body per
+    local channel, results stacked."""
+    from tempestsdr_tpu_torch.stream.pipeline import _channel_rows, channel_controls_on
+    from tempestsdr_tpu_torch.stream.state import StepOutputs, state_from_leaves, state_leaves
+
+    n_ch = raws.shape[0]
+    ctl = channel_controls_on(controls, n_ch, step.device)
+    rows = _channel_rows(states, n_ch)
+    results = [_unsplit_time_sharded(step, rows[c], raws[c], StepControls(*(v[c] for v in ctl)))
+               for c in range(n_ch)]
+    new = state_from_leaves([torch.stack(v) for v in zip(*(state_leaves(s) for s, _ in results))])
+    return new, StepOutputs(*(torch.stack(v) for v in zip(*(o for _, o in results))))
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    return [t for x in (tree or ()) for t in _tensors(x)]
+
+
+class EmulatedStages:
+    """stream.graph.GraphStages' members on the CPU, for StagedRunner: a
+    stage "captured" runs once and keeps the tensors it returned; a replay
+    runs it again and writes into those tensors, as a graph's replay
+    rewrites its static outputs, so later stages and the exchanges read
+    and write the same tensors every call, as on the card. No side stream,
+    no sync debug mode."""
+
+    def __init__(self):
+        self.sync_debug = lambda mode: contextlib.nullcontext()
+        self.warm_up = contextlib.nullcontext
+
+    def capture(self, fn, nodes):
+        out = fn()
+
+        def replay():
+            for dst, src in zip(_tensors(out), _tensors(fn()), strict=True):
+                dst.copy_(src)
+
+        return SimpleNamespace(replay=replay, census=lambda: {}), out
+
+
+STAGED_CASES = {  # name -> (Params, T, grid rows, autocorr)
+    "default": (Params(framerate_pll=False), WORLD, 1, True),
+    "fir31": (Params(framerate_pll=False, fir_lowpass_taps=31), 4, 1, True),
+    "nearest": (Params(framerate_pll=False, nearest_neighbour=True), WORLD, 1, True),
+    "nearest-no-autocorr": (Params(framerate_pll=False, nearest_neighbour=True), 4, 1, False),
+    "grid 2x4": (Params(framerate_pll=False), WORLD // 2, 2, True),
+}
+STAGED_EVENTS = {3: (0, 777), 9: (1000, 0), 11: (0, -1234)}  # block -> (dropped, sync shift)
+
+
+def rank_staged(name, per_row_blocks):
+    """One case of STAGED_CASES on this rank, over the blocks of its row:
+    the step as it was before the split (the reference), the eager staged
+    step (make_*_step on the CPU), and a StagedRunner replaying its stages
+    through EmulatedStages, in the select form and with the taken-only
+    strategy (tests/torch_taken_only.py: the IF nodes' form) installed in
+    this rank, each from a fresh state. Returns whether every block's
+    outputs (kept across calls) and the final state of every form equal
+    the reference's bit for bit, the frames and rounds seen, and the sides
+    the taken-only form took per branch."""
+    from torch_taken_only import TakenOnly, taken_only
+
+    from tempestsdr_tpu_torch.parallel.timeshard import GridStep, TimeShardedStep
+    from tempestsdr_tpu_torch.stream.graph import StagedRunner
+    from tempestsdr_tpu_torch.stream.state import state_leaves
+
+    params, T, rows, autocorr = STAGED_CASES[name]
+    cfg = config(autocorr=autocorr)
+    mesh = make_mesh(rows, T, device="cpu")
+    if mesh.coords is None:
+        return None
+    r, t = mesh.coords
+    S = cfg.block_samples // T
+    grid = rows > 1
+    if grid:
+        program, unsplit, public = GridStep(cfg, params, mesh), _unsplit_grid, make_grid_step
+    else:
+        program, unsplit = TimeShardedStep(cfg, params, mesh), _unsplit_time_sharded
+        public = make_time_sharded_step
+
+    def new_state():
+        if grid:
+            return stack_states(cfg, 1, params.fir_lowpass_taps, device="cpu")
+        return init_state(cfg, params.fir_lowpass_taps, device="cpu")
+
+    def ctl(b):
+        dropped, sync = STAGED_EVENTS.get(b, (0, 0))
+        if grid:
+            return StepControls(torch.tensor([dropped]), torch.tensor([sync], dtype=torch.int32),
+                                torch.full((1,), 0.3))
+        return StepControls(torch.tensor(dropped), torch.tensor(sync, dtype=torch.int32),
+                            torch.tensor(0.3))
+
+    def run(step):
+        state, outs = new_state(), []
+        for b, blk in enumerate(per_row_blocks[r]):
+            raw = torch.from_numpy(blk[2 * S * t:2 * S * (t + 1)])
+            state, out = step(state, raw[None] if grid else raw, ctl(b))
+            outs.append(out)
+        return outs, state_leaves(state)
+
+    want_outs, want_state = run(lambda *a: unsplit(program, *a))
+    forms = {"eager": public(cfg, params, mesh),
+             "replayed": StagedRunner(program, EmulatedStages())}
+    got = {k: run(v) for k, v in forms.items()}
+    strategy = TakenOnly()
+    with taken_only(strategy):
+        got["replayed, taken only"] = run(StagedRunner(program, EmulatedStages()))
+    same = {k: all(_same(o, w) for o, w in zip(outs, want_outs)) and _same(st, want_state)
+            for k, (outs, st) in got.items()}
+    return dict(same=same, frames=sum(int(o.frame_valid.sum()) for o in want_outs),
+                rounds=sum(int(o.ac_plot_valid.sum()) for o in want_outs),
+                shifts=sum(int(o.n_pixels.sum() > 0) for b, o in enumerate(want_outs)
+                           if STAGED_EVENTS.get(b, (0, 0))[1]),
+                seen={k: sorted(v) for k, v in strategy.seen.items()})
+
+
+def rank_channel_mesh_controls(cfg, params, per_ch_blocks):
+    """The channel mesh's step on this rank (2 'ch' rows of WORLD // 2
+    ranks, 2 channels a rank) against its ChannelRunner fed the [C, 3]
+    float64 controls the step packs on a card (ChannelMeshStep.controls),
+    a drop, a sync shift and a motion blur among them: bit for bit."""
+    from tempestsdr_tpu_torch.stream.state import state_leaves
+
+    mesh = make_mesh(2, WORLD // 2, device="cpu")
+    step = make_channel_step(cfg, params, mesh, 4)
+    per = 2
+    mine = range(mesh.ch_index * per, (mesh.ch_index + 1) * per)
+    a, b = (stack_states(cfg, per, device="cpu") for _ in range(2))
+    same = True
+    for i in range(len(per_ch_blocks[0])):
+        raws = torch.from_numpy(np.stack([per_ch_blocks[c][i] for c in mine]))
+        ctl = StepControls(torch.tensor([1000 if i == 4 else 0, 0]),
+                           torch.tensor([0, 555 if i == 2 else 0], dtype=torch.int32),
+                           torch.tensor([0.3, 0.1]))
+        a, want = step(a, raws, ctl)
+        b, got, _ = step.runner.run(b, raws, step.controls(ctl))
+        same &= _same(got, want) and _same(state_leaves(a), state_leaves(b))
+    return dict(same=same, cond_mode=step.cond_mode, n_channels=step.n_channels)
 
 
 def rank_mesh_api():
@@ -460,6 +677,58 @@ def test_sharded_steps_read_nothing_to_the_host(pool):
     for mode in ("batched", "unrolled"):
         step = make_channel_step(cfg, params, mesh, 4, cond_mode=mode)
         assert (step.n_channels, step.cond_mode) == (2, mode)
+
+
+@pytest.mark.parametrize("name", list(STAGED_CASES))
+def test_staged_steps_equal_the_unsplit_step(pool, name):
+    """The time-sharded step cut at its collectives (default, FIR 31,
+    nearest-neighbour with and without the ring's gather) and the grid
+    (2 x 4) on gloo CPU ranks, over blocks with a drop, two sync shifts,
+    rounds and frames: the eager staged step, a StagedRunner replaying its
+    stages through EmulatedStages (static tensors written by the exchanges,
+    the state the runner's, the outputs the caller's), and that runner with
+    the IF nodes' taken-only form installed in each rank, all bit for bit
+    the step as it was before the split. The taken-only form takes both
+    sides of the round and the emit, and the shift."""
+    params, T, rows, autocorr = STAGED_CASES[name]
+    blocks = [gen_blocks(14, 8192, seed=s) for s in (8, 9)[:rows]]
+    res = [r for r in pool.run(rank_staged, name, blocks) if r is not None]
+    assert len(res) == T * rows
+    for r in res:
+        assert r["same"] == {"eager": True, "replayed": True, "replayed, taken only": True}, r
+        assert r["frames"] > 0 and r["shifts"] > 0
+        assert r["rounds"] > 0 or not autocorr
+        want = {"emit_fn": [False, True], "shift": [False, True]}
+        if autocorr:
+            want["round_body"] = [False, True]
+        assert r["seen"] == want, r["seen"]
+
+
+def test_channel_mesh_controls_pack_exactly(pool):
+    """make_channel_step's controls as the card's replay takes them ([C, 3]
+    float64 through its ChannelRunner) give the eager channel step's
+    outputs and state bit for bit, with a drop, a sync shift and two motion
+    blurs."""
+    cfg = config(autocorr=True)
+    per_ch = [gen_blocks(8, 8192, seed=s) for s in range(4)]
+    res = pool.run(rank_channel_mesh_controls, cfg, Params(framerate_pll=False), per_ch)
+    assert all(r["same"] and (r["cond_mode"], r["n_channels"]) == ("unrolled", 2) for r in res)
+
+
+def test_collectives_refuse_under_capture(monkeypatch):
+    """Mesh.all_gather and Mesh.psum (and the shifts built on all_gather)
+    raise while the current stream captures a CUDA graph, as reported by
+    torch.cuda: a replay would not run them."""
+    mesh = make_mesh(device="cpu")
+    x = torch.arange(3.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    for call in (lambda: mesh.all_gather(x), lambda: mesh.all_gather(x, tiled=True),
+                 lambda: mesh.psum(x), lambda: mesh.shift_right(x)):
+        with pytest.raises(RuntimeError, match="captures a CUDA graph"):
+            call()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    assert torch.equal(mesh.psum(x), x)
 
 
 def test_channel_step_rejects_uneven_channels():
