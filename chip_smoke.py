@@ -66,6 +66,22 @@
    superresolution session (a 16 MS/s native source stitched to the 64 MS/s
    geometry, through K1), with stitch_hops on the card held against the CPU
    and the alignment lags equal;
+7d. the intake paths (intake_phase), each held against a run already
+   trusted: rawfile captures in int8, int16, uint16 and float32 (and int8
+   under resampler="fused") through Session at 64 MS/s against the CPU
+   step over the same blocks (integers exact, frames within GRAPH_TOL) and
+   the uint8 capture of the same emanation, one graph captured per dtype,
+   K1 (K2) once a block by the profiler; the exec source (`cat` of an int8
+   capture at 16 MS/s, of a 24-bit one widened to float32 at 8 MS/s) and
+   rtltcp at 2.4 MS/s from a paced loopback server, each bit for bit
+   rawfile's over the same samples, no drop, the rtl_tcp commands those of
+   a CPU run; MultiSession.start_async at config 5 bit for bit the
+   foreground run, in turns; TSDR.start(background=True) beside
+   warm_resolution(background=True), the restart at the warmed geometry
+   capturing no graph (first block beside a cold geometry's), every
+   session's frames a foreground run's; examples/torch_*.py with their
+   default device against --device cpu. An exception on any worker thread
+   fails the run (worker_faults);
 8. prints the dispatch floor, what batch_blocks="auto" resolves to, and a
    first block in a fresh process cold and after warm_compile_step
    (`chip_smoke.py --first-block cold|warm`, which it starts itself);
@@ -112,6 +128,9 @@ import functools
 import io
 import json
 import os
+import re
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2540,6 +2559,605 @@ def branch_nodes_phase(smi):
     return rows
 
 
+# ---- intake paths: what users feed the receiver ---------------------------
+
+INTAKE_FORMATS = (  # label, the rawfile format, its dtype, Params
+    ("int8", "int8", np.int8, Params()),
+    ("int16", "int16", np.int16, Params()),
+    ("uint16", "uint16", np.uint16, Params()),
+    ("float32", "float", np.float32, Params()),
+    ("int8 fused", "int8", np.int8, Params(resampler="fused")),
+)
+INTAKE_BLOCKS = 12
+# an RTL-SDR's rate, at the block size TSDR and the command line default to
+RTL_CFG = PipelineConfig(samplerate=2.4e6, height=628, refreshrate=60.0, block_samples=1 << 16)
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+
+
+@contextlib.contextmanager
+def worker_faults():
+    """Every exception raised on a worker thread inside the block, caught by
+    threading.excepthook and raised at its end. The port, like the JAX
+    package, lets a worker thread's exception be printed and dropped; the
+    smoke run refuses to pass over one."""
+    seen, prev = [], threading.excepthook
+
+    def hook(args):
+        seen.append(f"{args.thread.name if args.thread else '?'}: "
+                    f"{args.exc_type.__name__}: {args.exc_value}")
+        prev(args)
+
+    threading.excepthook = hook
+    try:
+        yield seen
+    finally:
+        threading.excepthook = prev
+    assert not seen, f"exceptions on worker threads: {seen}"
+
+
+def emanation(cfg, dtype, n_blocks):
+    """A capture of the synthetic emanation in `dtype`, quantized by
+    synth_iq like a recorder: the raster at 0.3-0.9 of full scale plus
+    noise, inside every format's range. Returns (raster, samples)."""
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    iq = synth_iq(raster * 0.6, samplerate=cfg.samplerate,
+                  pixelclock=raster.size * cfg.refreshrate,
+                  n_samples=n_blocks * cfg.block_samples, dc=0.3, noise=0.02, dtype=dtype)
+    return raster, iq
+
+
+def i24_le(f32):
+    """float32 in [-1, 1) as the ExtIO 24-bit little-endian signed PCM, and
+    the float32 values those bytes stand for (v / 2^23), made with numpy
+    apart from the exec source's own widening."""
+    v = np.clip(np.round(f32.astype(np.float64) * (1 << 23)), -(1 << 23), (1 << 23) - 1)
+    v = v.astype("<i4")
+    return v.view(np.uint8).reshape(-1, 4)[:, :3].tobytes(), (v / (1 << 23)).astype(np.float32)
+
+
+def source_session(cfg, params, source, count=False, **run):
+    """Session.run over `source` on the card: (frames, session, seconds,
+    launches under the profiler or None). A fault on the session's own
+    thread, or on a worker thread (worker_faults), fails the run."""
+    frames, errors = [], []
+    sess = Session(cfg, params, source, SessionCallbacks(on_frame=frames.append,
+                                                         on_exception=errors.append), device=DEV)
+    torch.cuda.synchronize()
+    with (card_counts() if count else contextlib.nullcontext(None)) as launches:
+        t0 = time.perf_counter()
+        sess.run(**run)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    assert not errors, errors
+    assert sess.samples_dropped_total == 0, sess.samples_dropped_total
+    return frames, sess, dt, launches
+
+
+def cpu_step(cfg, params, blocks):
+    """The device step on the CPU (the kernels' plain versions) over the
+    blocks, with no control: its frames and its final state."""
+    step = make_step(cfg, params, device="cpu")
+    state = init_state(cfg, params.fir_lowpass_taps, device="cpu")
+    frames = []
+    for raw in blocks:
+        state, out = step(state, torch.from_numpy(raw), StepControls())
+        frames += [f for _, f in _valid_frames(out)]
+    return frames, state
+
+
+def held_to_cpu_step(frames, state, want, want_state, what):
+    """The card's frames and final state against the CPU step's: as many
+    frames, each within GRAPH_TOL, every integer leaf of the state (the
+    carries) equal. Returns the worst frame difference."""
+    assert len(frames) == len(want) > 0, (what, len(frames), len(want))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(frames, want))
+    assert err <= GRAPH_TOL, (what, err)
+    for i, (a, b) in enumerate(zip(state_leaves(state), state_leaves(want_state))):
+        if not (a.is_floating_point() or a.is_complex()):
+            assert torch.equal(a.cpu(), b), (what, "state leaf", i)
+    return err
+
+
+def same_frames(got, want, what):
+    """held_frames, and as many frames as `want`."""
+    assert held_frames(got, want, what) == len(want), (what, len(got), len(want))
+
+
+def graphs_of(cfg, params):
+    """The raw dtypes the cached runner of (cfg, params, batch 1) holds a
+    graph for."""
+    runner = session_mod._WARM_STEPS.get((cfg, params, 1, DEV))
+    return set() if runner is None else set(runner._graphs)
+
+
+def intake_formats(cfg, tmp, smi):
+    """Every raw format through rawfile -> Session at 64 MS/s: against the
+    CPU step over the same blocks, against the uint8 capture of the same
+    emanation, and its graph captured once."""
+    blocks_of = {}
+
+    def through(label, fmt, dtype, params):
+        path = os.path.join(tmp, f"intake.{fmt}")
+        if dtype not in blocks_of:
+            blocks_of[dtype] = emanation(cfg, dtype, INTAKE_BLOCKS)[1]
+            blocks_of[dtype].tofile(path)
+        spec = f"{path} {cfg.samplerate} {fmt} noloop"
+        before = graphs_of(cfg, params)
+        runs = []
+        for count in (False, False, False, False, True):  # the capture, 3 timed, counted
+            runs.append(source_session(cfg, params, load_source("rawfile", spec), count=count))
+        captured = graphs_of(cfg, params) - before
+        assert captured == ({torch.from_numpy(np.zeros(0, dtype)).dtype} - before), captured
+        for frames, *_ in runs[1:]:
+            same_frames(frames, runs[0][0], f"rawfile {label}, replays")
+        frames, sess, _, launches = runs[-1]
+        blocks = sess.meter.total_samples // cfg.block_samples
+        assert blocks == INTAKE_BLOCKS, blocks
+        kernel = "fused_demod_resample_cuda" if params.resampler == "fused" else \
+            "box_resample_strided_cuda"
+        only(launches, **{kernel: blocks})
+        return dict(frames=frames, sess=sess, blocks=blocks, captured=sorted(map(str, captured)),
+                    first_run_ms=runs[0][2] / blocks * 1e3,
+                    ms=[run[2] / blocks * 1e3 for run in runs[1:4]],
+                    kernel=kernel, launches=launches[kernel],
+                    under_profiler={k: getattr(launches, k) / blocks
+                                    for k in ("wall_ms", "device_ms", "transfer_ms")})
+
+    u8 = through("uint8", "uint8", np.uint8, Params())
+    rows, launches = {}, {}
+    for label, fmt, dtype, params in INTAKE_FORMATS:
+        got = through(label, fmt, dtype, params)
+        blocks = np.split(blocks_of[dtype], INTAKE_BLOCKS)
+        t_cpu = time.perf_counter()
+        want, want_state = cpu_step(cfg, params, blocks)
+        t_cpu = time.perf_counter() - t_cpu
+        err = held_to_cpu_step(got["frames"], got["sess"].state, want, want_state,
+                               f"rawfile {label}")
+        # the same emanation in uint8: as many frames, the first alike (later
+        # frames follow each run's PLL walk, which quantization steers)
+        assert len(got["frames"]) == len(u8["frames"]), (label, len(got["frames"]))
+        corr = [float(np.corrcoef(a.ravel(), b.ravel())[0, 1])
+                for a, b in zip(got["frames"], u8["frames"])]
+        assert corr[0] > CORR_MIN, (label, corr)
+        rows[label] = dict(blocks=got["blocks"], frames=len(got["frames"]),
+                           graphs_captured=got["captured"], first_run_ms_a_block=got["first_run_ms"],
+                           ms_a_block_median=float(np.median(got["ms"])), ms_a_block=got["ms"],
+                           launches={got["kernel"]: got["launches"]},
+                           ms_a_block_under_profiler=got["under_profiler"],
+                           max_abs_err_vs_cpu_step=err, cpu_step_s=t_cpu,
+                           corr_vs_uint8_by_frame=corr)
+        print(f"intake rawfile {label} (64MS/s, {smi}): " + json.dumps(rows[label]))
+        launches[f"rawfile {label} Session 64MS/s, {INTAKE_BLOCKS} blocks"] = got["launches"]
+    return rows, launches
+
+
+def exec_case(cfg, fmt, tmp, n_blocks=6):
+    """The exec source: `cat` of a capture in `fmt` (i8, or i24 widened to
+    float32 on the host) through Session, against rawfile over the same
+    samples (int8, or the float32 those 24-bit samples stand for): the same
+    graph and the same input, so the frames are equal bit for bit. The
+    child exits 0 with nothing reported."""
+    if fmt == "i8":
+        samples = emanation(cfg, np.int8, n_blocks)[1]
+        data, ref_fmt, ref = samples.tobytes(), "int8", samples
+    else:
+        data, ref = i24_le(emanation(cfg, np.float32, n_blocks)[1])
+        ref_fmt = "float"
+    path, ref_path = os.path.join(tmp, f"exec.{fmt}"), os.path.join(tmp, f"exec_ref.{ref_fmt}")
+    with open(path, "wb") as f:
+        f.write(data)
+    ref.tofile(ref_path)
+    want, *_ = source_session(cfg, Params(), load_source(
+        "rawfile", f"{ref_path} {cfg.samplerate} {ref_fmt} noloop"))
+    ring = -(-len(data) // (1 << 16)) + 1  # the whole capture: cat outruns the session
+    src = load_source("exec", f"{cfg.samplerate} {fmt} ring={ring} -- cat {path}")
+    frames, sess, dt, launches = source_session(cfg, Params(), src, count=True)
+    same_frames(frames, want, f"exec {fmt} against rawfile {ref_fmt}")
+    blocks = sess.meter.total_samples // cfg.block_samples
+    assert blocks == n_blocks, blocks
+    assert src.last_error() == "", src.last_error()
+    only(launches, box_resample_strided_cuda=blocks)
+    return dict(rate_msps=cfg.samplerate / 1e6, blocks=blocks, frames=len(frames),
+                frames_equal_rawfile=ref_fmt, per_block_ms_under_profiler=dt / blocks * 1e3,
+                k1_launches=launches["box_resample_strided_cuda"], child_error=src.last_error())
+
+
+class RtlTcpServer:
+    """A loopback server speaking rtl_tcp.c's wire format: the 12-byte
+    header ("RTL0", tuner type, gain count), then the capture's uint8 IQ at
+    `rate` samples a second, recording every 5-byte command (u8 command, u32
+    big-endian value) the client sends. It closes once the client has."""
+
+    def __init__(self, data: bytes, rate: float, chunk: int = 1 << 14):
+        self.data, self.rate, self.chunk = data, rate, chunk
+        self.commands = []
+        self.srv = socket.create_server(("127.0.0.1", 0))
+        self.port = self.srv.getsockname()[1]
+        self.thread = threading.Thread(target=self._serve, name="rtl_tcp server", daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        conn, _ = self.srv.accept()
+        with conn, self.srv:
+            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))  # R820T, 29 gains
+            reader = threading.Thread(target=self._commands, args=(conn,),
+                                      name="rtl_tcp commands", daemon=True)
+            reader.start()
+            t0 = time.monotonic()
+            try:
+                for pos in range(0, len(self.data), self.chunk):
+                    wait = t0 + pos / (2 * self.rate) - time.monotonic()
+                    if wait > 0:
+                        time.sleep(wait)
+                    conn.sendall(self.data[pos:pos + self.chunk])
+            except (BrokenPipeError, ConnectionResetError):
+                pass  # the client stopped first
+            reader.join(timeout=60)
+
+    def _commands(self, conn):
+        buf = b""
+        while True:
+            try:
+                got = conn.recv(64)
+            except OSError:
+                return
+            if not got:
+                return
+            buf += got
+            while len(buf) >= 5:
+                self.commands.append(struct.unpack(">BI", buf[:5]))
+                buf = buf[5:]
+
+    def join(self):
+        self.thread.join(timeout=60)
+        assert not self.thread.is_alive(), "the rtl_tcp server did not finish"
+
+
+def rtltcp_case(tmp, n_blocks=24):
+    """rtltcp through TSDR at an RTL-SDR's 2.4 MS/s, from a loopback server
+    that paces the capture at that rate: frames equal to rawfile's over the
+    same bytes (the same graph, the same input), no drop, and the commands
+    on the wire those the same source sends from a CPU run."""
+    cfg = RTL_CFG
+    data = emanation(cfg, np.uint8, n_blocks)[1]
+    path = os.path.join(tmp, "rtl.u8")
+    data.tofile(path)
+    ring = -(-data.nbytes // (1 << 16)) + 1
+
+    def through(name, params, device, count=False):
+        frames = []
+        rx = TSDR(block_samples=cfg.block_samples, device=device)
+        rx.load_source(name, params)
+        rx.set_resolution(cfg.height, cfg.refreshrate)
+        with (card_counts() if count else contextlib.nullcontext(None)) as launches:
+            t0 = time.perf_counter()
+            rx.start(on_frame=frames.append, max_blocks=n_blocks)
+            dt = time.perf_counter() - t0
+        dropped = rx.session.samples_dropped_total
+        rx.close()
+        assert dropped == 0, (name, device, dropped)
+        return frames, dt, launches
+
+    want, *_ = through("rawfile", f"{path} {cfg.samplerate} uint8 noloop", DEV)
+    runs = {}
+    for where, device in (("card", DEV), ("cpu", "cpu")):
+        server = RtlTcpServer(data.tobytes(), cfg.samplerate)
+        spec = f"127.0.0.1 {server.port} {cfg.samplerate:.0f} freq=433920000 gain=0.5 ring={ring}"
+        frames, dt, launches = through("rtltcp", spec, device, count=where == "card")
+        server.join()
+        runs[where] = dict(frames=frames, s=dt, commands=server.commands, launches=launches)
+    card, cpu = runs["card"], runs["cpu"]
+    same_frames(card["frames"], want, "rtltcp against rawfile uint8")
+    assert card["commands"] == cpu["commands"] and card["commands"], (card["commands"],
+                                                                      cpu["commands"])
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card["frames"], cpu["frames"]))
+    assert len(card["frames"]) == len(cpu["frames"]) and err <= GRAPH_TOL, err
+    only(card["launches"], box_resample_strided_cuda=n_blocks)
+    return dict(rate_msps=cfg.samplerate / 1e6, width=cfg.width, blocks=n_blocks,
+                frames=len(card["frames"]), dropped=0, commands=card["commands"],
+                paced_wall_s=card["s"], signal_s=n_blocks * cfg.block_samples / cfg.samplerate,
+                max_abs_err_vs_cpu=err,
+                k1_launches_under_profiler=card["launches"]["box_resample_strided_cuda"])
+
+
+def multisession_async(n_blocks=8):
+    """MultiSession.start_async at config 5 (Params(framerate_pll=False), as
+    examples/torch_multi_target.py sets it): this thread polls is_running
+    until the worker's run ends, then stop(); frames per channel equal a
+    foreground run's over the same sources bit for bit; ms a block of each,
+    in turns; K1 once per channel a block from the worker, by the profiler."""
+    params = Params(framerate_pll=False)
+    srcs = channel_sources(CH5, N_CH, n_blocks)
+    MultiSession(CH5, params, srcs, device=DEV).run(max_blocks=1)  # the graph's capture
+
+    def one(mode, count=False):
+        got = {c: [] for c in range(N_CH)}
+        ms = MultiSession(CH5, params, srcs, on_frame=lambda c, f: got[c].append(f), device=DEV)
+        torch.cuda.synchronize()
+        with (card_counts() if count else contextlib.nullcontext(None)) as launches:
+            t0 = time.perf_counter()
+            if mode == "foreground":
+                ms.run(max_blocks=n_blocks)
+            else:
+                ms.start_async(max_blocks=n_blocks)
+                assert ms.is_running
+                deadline = time.time() + 120
+                while ms.is_running:
+                    assert time.time() < deadline, "MultiSession.start_async: no end"
+                    time.sleep(0.001)
+                thread = ms._thread
+                ms.stop()
+                assert ms._thread is None and not thread.is_alive()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        return got, dt / n_blocks * 1e3, launches
+
+    ms_by = {"foreground": [], "background": []}
+    frames = {}
+    for mode in ("foreground", "background", "background", "foreground"):
+        got, ms, _ = one(mode)
+        ms_by[mode].append(ms)
+        if mode in frames:
+            for c in range(N_CH):
+                same_frames(got[c], frames[mode][c], f"MultiSession {mode} channel {c}")
+        frames[mode] = got
+    for c in range(N_CH):
+        same_frames(frames["background"][c], frames["foreground"][c],
+                    f"MultiSession.start_async channel {c}")
+    got, _, launches = one("background", count=True)
+    only(launches, box_resample_strided_cuda=N_CH * n_blocks)
+    return dict(channels=N_CH, blocks=n_blocks,
+                frames=[len(frames["background"][c]) for c in range(N_CH)],
+                per_block_ms_foreground=ms_by["foreground"],
+                per_block_ms_start_async=ms_by["background"],
+                k1_launches_under_profiler=launches["box_resample_strided_cuda"])
+
+
+def tsdr_background(tmp, n_blocks=6):
+    """TSDR.start(background=True) at 8 MS/s and, while it streams,
+    warm_resolution(height + 14, background=True), joined; then stop(),
+    set_resolution to the warmed geometry and start again. The restarted
+    session's first block captures no graph (its runner is the warmed one);
+    its time to the first frame beside a cold geometry's (kernels loaded,
+    its graph not captured). Every session's frames equal a foreground run's
+    of the same geometry from the capture's start bit for bit."""
+    cfg = GEOMETRIES["8MS/s"]
+    path = os.path.join(tmp, "tsdr8.u8")
+    emanation(cfg, np.uint8, 2 * n_blocks)[1].tofile(path)
+    warm_h, cold_h = cfg.height + 14, cfg.height + 28
+    captures = []
+    real_capture = BlockRunner._capture
+
+    def capture(self, dtype):
+        captures.append((self.config.height, threading.current_thread().name))
+        return real_capture(self, dtype)
+
+    def api(height, pace=""):
+        rx = TSDR(block_samples=cfg.block_samples, device=DEV)
+        rx.load_source("rawfile", f"{path} {cfg.samplerate} uint8{pace}")
+        rx.set_resolution(height, cfg.refreshrate)
+        return rx
+
+    def timed_start(rx, count=False):
+        """start(max_blocks=n_blocks): its frames, the ms of its first
+        block's dispatch (upload, replay or capture, fetch, downloads) and
+        the ms from start() to its first frame, and its launches."""
+        frames, first, dispatch = [], [], []
+        real = Session._dispatch_blocks
+        t0 = time.perf_counter()
+
+        def timed(self, *a):
+            t = time.perf_counter()
+            got = real(self, *a)
+            dispatch.append((time.perf_counter() - t) * 1e3)
+            return got
+
+        def on_frame(f):
+            if not first:
+                first.append((time.perf_counter() - t0) * 1e3)
+            frames.append(f)
+
+        Session._dispatch_blocks = timed
+        try:
+            with (card_counts() if count else contextlib.nullcontext(None)) as launches:
+                rx.start(on_frame=on_frame, max_blocks=n_blocks)
+        finally:
+            Session._dispatch_blocks = real
+        return frames, dict(first_block_ms=dispatch[0], first_frame_ms=first[0]), launches
+
+    def foreground(height, **limit):
+        rx = api(height)
+        frames = []
+        rx.start(on_frame=frames.append, **limit)
+        rx.close()
+        return frames
+
+    BlockRunner._capture = capture
+    try:
+        rx = api(cfg.height, " throttle")  # at the radio's rate, as a live source
+        streamed = []
+        rx.start(on_frame=streamed.append, background=True)
+        deadline = time.time() + 60
+        while len(streamed) < 2:
+            assert time.time() < deadline and rx.is_running, "TSDR background: no frames"
+            time.sleep(0.001)
+        at_warm = len(streamed)
+        t0 = time.perf_counter()
+        warm = rx.warm_resolution(warm_h, cfg.refreshrate, background=True)
+        warm.join(timeout=120)
+        warm_s = time.perf_counter() - t0
+        assert not warm.is_alive() and rx.is_running
+        during_warm = len(streamed) - at_warm
+        rx.stop()
+        assert not rx.is_running
+        warmed_key = (rx._make_config(height=warm_h), rx._params, 1, DEV)
+        assert session_mod._WARM_STEPS[warmed_key]._graphs.keys() == {torch.uint8}
+        n_captures = len(captures)
+        rx.set_resolution(warm_h, cfg.refreshrate)
+        restarted, warm_first, _ = timed_start(rx)
+        assert rx.session._runner is session_mod._WARM_STEPS[warmed_key]
+        assert len(captures) == n_captures, captures[n_captures:]  # none: the warmed graph
+        rx.set_resolution(cold_h, cfg.refreshrate)
+        cold, cold_first, _ = timed_start(rx)
+        assert [h for h, _ in captures[n_captures:]] == [cold_h], captures
+        rx.set_resolution(warm_h, cfg.refreshrate)
+        counted, _, launches = timed_start(rx, count=True)
+        same_frames(counted, restarted, "TSDR restarted, under the profiler")
+        rx.close()
+    finally:
+        BlockRunner._capture = real_capture
+    same_frames(streamed, foreground(cfg.height, max_frames=len(streamed))[:len(streamed)],
+                "TSDR background session")
+    same_frames(restarted, foreground(warm_h, max_blocks=n_blocks), "TSDR restarted (warmed)")
+    same_frames(cold, foreground(cold_h, max_blocks=n_blocks), "TSDR restarted (cold)")
+    only(launches, box_resample_strided_cuda=n_blocks)
+    return dict(frames_background=len(streamed), frames_during_the_warm=during_warm,
+                warm_thread_s=warm_s, graphs_captured_by=sorted(set(captures)),
+                warmed=warm_first, cold_geometry=cold_first,
+                source_block_ms=cfg.block_samples / cfg.samplerate * 1e3,
+                restarted_frames=len(restarted),
+                k1_launches_restarted=launches["box_resample_strided_cuda"])
+
+
+def run_example(args, cwd, device):
+    """examples/<args[0]> with the rest of args and, for "cpu", --device
+    cpu (the card is each example's default), started in `cwd`."""
+    argv = [sys.executable, os.path.join(EXAMPLES, args[0]), *args[1:]]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(EXAMPLES), OMP_NUM_THREADS="2")
+    return subprocess.Popen(argv, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finished(proc, what, timeout=300):
+    out, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, (what, proc.returncode, err[-2000:])
+    return out.splitlines()
+
+
+def numbers_in(line):
+    return [float(x) for x in re.findall(r"-?\d+\.\d+", line)]
+
+
+def ranges_agree(card, cpu, what):
+    """Frame ranges the examples print, card against CPU: within 1e-4, plus
+    one unit of the last printed digit (each side rounds to it)."""
+    for a, b in zip(card, cpu):
+        na, nb = numbers_in(a), numbers_in(b)
+        assert len(na) == len(nb) and a.split("[")[0] == b.split("[")[0], (what, a, b)
+        for x, y, s in zip(na, nb, a.split("[")[-1].split(",")):
+            digits = len(s.strip(" ]").split(".")[-1]) if "." in s else 0
+            assert abs(x - y) <= 1e-4 + 10.0 ** -digits, (what, a, b)
+
+
+def examples_case(tmp):
+    """The card examples with their default device and with --device cpu,
+    the eight processes at once (their times are not compared): the same frame
+    counts and detected mode, frame ranges within 1e-4, the multi-channel
+    ranks on cuda: devices. torch_reference_plugin.py needs the reference's
+    plugin sources, which are not in the repository: not run."""
+    cap = os.path.join(tmp, "example_capture.bin")
+    made = finished(run_example(["torch_make_test_capture.py", cap, "1.0"], tmp, None),
+                    "torch_make_test_capture.py")
+    assert os.path.getsize(cap) == int(8e6) * 2, made
+    cases = {
+        "torch_replay_capture.py": [cap, "8000000", "uint8", "30"],
+        "torch_auto_detect_mode.py": [cap, "8000000", "uint8"],
+        "torch_multi_target.py": ["3"],
+        "torch_multi_channel.py": ["4"],
+    }
+    dirs, procs, out = {}, {}, {}
+    t0 = time.perf_counter()
+    for name, args in cases.items():  # all together, each in a directory of its own
+        for device in ("cuda", "cpu"):
+            dirs[name, device] = d = os.path.join(tmp, f"{name}.{device}")
+            os.makedirs(d)
+            procs[name, device] = run_example([name, *args], d, device)
+    for (name, device), proc in procs.items():
+        out[name, device] = finished(proc, f"{name} on {device}")
+    wall_s = time.perf_counter() - t0
+
+    rows = {}
+    card, cpu = out["torch_replay_capture.py", "cuda"], out["torch_replay_capture.py", "cpu"]
+    saved = {d: sorted(os.listdir(os.path.join(dirs["torch_replay_capture.py", d], "frames")))
+             for d in ("cuda", "cpu")}
+    assert saved["cuda"] == saved["cpu"] and saved["cuda"], saved
+    for name in saved["cuda"]:  # 8-bit snapshots: within one grey level
+        a, b = (np.frombuffer(open(os.path.join(dirs["torch_replay_capture.py", d], "frames",
+                                                name), "rb").read(), np.uint8)
+                for d in ("cuda", "cpu"))
+        assert a.shape == b.shape and np.abs(a.astype(int) - b.astype(int)).max() <= 1, name
+    frames_of = lambda lines: [l for l in lines if l.startswith("done:")][0].split("/ ")[-1]  # noqa
+    assert frames_of(card) == frames_of(cpu) == "30 frames)", (card[-1], cpu[-1])
+    rows["torch_replay_capture.py"] = dict(frames=30, snapshots=saved["cuda"])
+
+    card, cpu = out["torch_auto_detect_mode.py", "cuda"], out["torch_auto_detect_mode.py", "cpu"]
+    detected = [l for l in card if l.startswith("detected:")]
+    assert detected and detected == [l for l in cpu if l.startswith("detected:")], (card, cpu)
+    assert "60.00 Hz" in detected[0], detected
+    streamed = [l for l in card if l.startswith("streamed")]
+    assert streamed and "at 628 lines @ 60 Hz" in streamed[0], streamed
+    assert streamed[0].split(";")[0] == [
+        l for l in cpu if l.startswith("streamed")][0].split(";")[0], (card, cpu)
+    ranges_agree(streamed, [l for l in cpu if l.startswith("streamed")], "auto_detect")
+    rows["torch_auto_detect_mode.py"] = dict(detected=detected[0], streamed=streamed[0])
+
+    card, cpu = out["torch_multi_target.py", "cuda"], out["torch_multi_target.py", "cpu"]
+    assert card[0].replace("on cuda:0", "on cpu").replace("on cuda", "on cpu") == cpu[0], (card, cpu)
+    ranges_agree(card[1:], cpu[1:], "multi_target")
+    rows["torch_multi_target.py"] = dict(line=card[0])
+
+    card, cpu = out["torch_multi_channel.py", "cuda"], out["torch_multi_channel.py", "cpu"]
+    assert "['cuda:0']" in card[0] and "['cpu']" in cpu[0], (card[0], cpu[0])
+    assert card[0].split(" on ")[0] == cpu[0].split(" on ")[0], (card[0], cpu[0])
+    assert card[0].split(": ")[-1] == cpu[0].split(": ")[-1] == "4 channels produced frames"
+    ranges_agree(card[1:], cpu[1:], "multi_channel")
+    rows["torch_multi_channel.py"] = dict(line=card[0])
+    rows["all eight runs"] = dict(wall_s=wall_s)
+    rows["torch_reference_plugin.py"] = ("not run: it loads a plugin built from the "
+                                         "reference's sources (TSDRPlugin_RawFile), which "
+                                         "are not in the repository")
+    return rows
+
+
+def intake_phase(smi):
+    """The paths by which users feed the receiver, on the card, each held
+    against a run already trusted (the CPU step, or rawfile over the same
+    samples, or the foreground run): every raw format, exec, rtltcp,
+    MultiSession.start_async, TSDR's background start beside a background
+    warm, and the examples. A worker thread's exception fails the run.
+    Returns K1's and K2's launches by path."""
+    t0 = time.time()
+    with worker_faults(), tempfile.TemporaryDirectory() as tmp:
+        g64 = GEOMETRIES["64MS/s"]
+        formats, launches = intake_formats(g64, tmp, smi)
+        print(f"intake formats took {time.time() - t0:.1f} s")
+        for name, cfg, fmt in (("i8", CH5, "i8"), ("i24", GEOMETRIES["8MS/s"], "i24")):
+            row = exec_case(cfg, fmt, tmp)
+            print(f"intake exec {name} ({smi}): " + json.dumps(row))
+            launches[f"exec {name} Session {row['rate_msps']:g}MS/s, {row['blocks']} blocks"] = \
+                row["k1_launches"]
+        row = rtltcp_case(tmp)
+        print(f"intake rtltcp ({smi}): " + json.dumps(row))
+        launches[f"rtltcp TSDR 2.4MS/s, {row['blocks']} blocks"] = \
+            row["k1_launches_under_profiler"]
+        row = multisession_async()
+        print(f"intake MultiSession.start_async (8x16MS/s, {smi}): " + json.dumps(row))
+        launches[f"MultiSession.start_async 8x16MS/s, {row['blocks']} blocks"] = \
+            row["k1_launches_under_profiler"]
+        row = tsdr_background(tmp)
+        print(f"intake TSDR background start + background warm (8MS/s, {smi}): " + json.dumps(row))
+        launches["TSDR restarted at the warmed geometry 8MS/s, 6 blocks"] = \
+            row["k1_launches_restarted"]
+        for name, row in examples_case(tmp).items():
+            print(f"intake example {name}: " + json.dumps(row))
+    k2 = {k: v for k, v in launches.items() if "fused" in k}
+    k1 = {k: v for k, v in launches.items() if "fused" not in k}
+    print(f"intake paths took {time.time() - t0:.1f} s")
+    return k1, k2
+
+
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
     "K1": (box_resample_strided_cuda, "strided_resample.cu",
            "tempestsdr_tpu/pallas/strided_kernel.py:65"),
@@ -2612,6 +3230,7 @@ def main():
         auto_resolution_round_trip(GEOMETRIES["8MS/s"], tmp)
         batched_session(g64)
         live_controls(g64, tmp)
+    intake_k1, intake_k2 = intake_phase(smi)
     assert superresolution(g64) == 1 << 21  # 2^23 stitched samples a cycle
     numbers_worth_a_line(build_s)
     channel_launches = channels_phase(smi)
@@ -2634,6 +3253,7 @@ def main():
                 ("MultiSession 8x16MS/s graph, 4 blocks" if kid == "K1"
                  else "fused channel graph 8x16MS/s, 4 blocks"): channel_launches[kid]}
             kern[-1]["launches_by_path"].update(graph_launches if kid == "K1" else graph_k2)
+            kern[-1]["launches_by_path"].update(intake_k1 if kid == "K1" else intake_k2)
         if kid == "K1":
             kern[-1]["launches_by_path"].update(sharded_launches)
             kern[-1]["range_entry"] = dict(

@@ -151,6 +151,13 @@ class MultiSession:
         return frames
 
     def start_async(self, **kw) -> None:
+        """run(**kw) on a worker thread. Marked running before the thread
+        starts, as Session.start_async is: a caller polling is_running right
+        after this must not take a loop not yet scheduled for one that
+        ended."""
+        if self._thread is not None and self._thread.is_alive():
+            raise TSDRError(TSDRStatus.ALREADY_RUNNING, "session already streaming")
+        self._running = True
         self._thread = threading.Thread(target=self.run, kwargs=kw, daemon=True)
         self._thread.start()
 

@@ -186,6 +186,62 @@ def test_warm_resolution_background_is_reused():
     rx.close()
 
 
+def test_background_start_beside_a_background_warm(tmp_path):
+    """start(background=True), and while it streams warm_resolution(...,
+    background=True), joined; then stop, set_resolution to the warmed
+    geometry and start again. A rawfile source restarts at the file's
+    start, so the streamed frames are a foreground run's first frames bit
+    for bit; the restarted session takes the warmed runner and its frames
+    are a foreground run's at that geometry."""
+    import torch
+    from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq
+
+    path = tmp_path / "capture.u8"
+    synth_iq(render_test_pattern(LINES, TWIDTH), samplerate=SR, pixelclock=LINES * TWIDTH * REFRESH,
+             n_samples=16 * 8192, noise=0.01, dtype=np.uint8).tofile(path)
+
+    def api(height):
+        rx = tpkg.TSDR(block_samples=8192, device="cpu")
+        rx.load_source("rawfile", f"{path} {SR} uint8")
+        rx.set_resolution(height, REFRESH)
+        return rx
+
+    def foreground(height, n):
+        rx = api(height)
+        got = []
+        rx.start(on_frame=got.append, max_frames=n)
+        rx.close()
+        return got
+
+    rx = api(LINES)
+    streamed = []
+    assert rx.start(on_frame=streamed.append, background=True) is None
+    deadline = time.time() + 60
+    while len(streamed) < 2 and time.time() < deadline:
+        time.sleep(0.005)
+    assert rx.is_running
+    t = rx.warm_resolution(LINES + 14, REFRESH, background=True)
+    t.join(timeout=120)
+    assert not t.is_alive()
+    rx.stop()
+    assert not rx.is_running and len(streamed) >= 2
+    want = foreground(LINES, len(streamed))
+    assert len(want) == len(streamed)
+    assert all(np.array_equal(a, b) for a, b in zip(streamed, want))
+
+    rx.set_resolution(LINES + 14, REFRESH)
+    key = (rx._make_config(), rx._params, 1, torch.device("cpu"))
+    warmed = tsession._WARM_STEPS[key]
+    restarted = []
+    assert rx.start(on_frame=restarted.append, max_frames=3) == 3
+    assert rx.session._runner is warmed
+    rx.close()
+    want = foreground(LINES + 14, 3)
+    assert len(restarted) == len(want) == 3
+    assert restarted[0].shape == (LINES + 14, rx.session.config.width)
+    assert all(np.array_equal(a, b) for a, b in zip(restarted, want))
+
+
 @pytest.mark.parametrize("which", PACKAGES)
 def test_make_config_multiplies_the_rate_under_superresolution(which):
     pkg, _ = PACKAGES[which]

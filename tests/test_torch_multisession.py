@@ -193,6 +193,46 @@ def test_multisession_async_start_stop():
     assert not ms.is_running and len(frames) >= 2 * C
 
 
+def test_multisession_async_frames_equal_the_foreground_run(monkeypatch):
+    """start_async streams, per channel, the frames of a foreground run over
+    the same sources bit for bit. is_running holds from the call on, also
+    while the worker thread is slow to start; the caller polls it until the
+    run ends, then stop() joins the thread."""
+    import time
+
+    cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192)
+
+    def frames_of(start):
+        got = {c: [] for c in range(C)}
+        ms = MultiSession(cfg, Params(framerate_pll=False), _sources(SyntheticSource),
+                          on_frame=lambda c, f: got[c].append(f), device="cpu")
+        start(ms)
+        return ms, got
+
+    _, want = frames_of(lambda ms: ms.run(max_blocks=10))
+    real_run = MultiSession.run
+
+    def slow_start(self, **kw):
+        time.sleep(0.2)
+        return real_run(self, **kw)
+
+    monkeypatch.setattr(MultiSession, "run", slow_start)
+    ms, got = frames_of(lambda ms: ms.start_async(max_blocks=10))
+    assert ms.is_running
+    with pytest.raises(TSDRError):
+        ms.start_async()
+    deadline = time.time() + 60
+    while ms.is_running and time.time() < deadline:
+        time.sleep(0.005)
+    thread = ms._thread
+    ms.stop()
+    assert not ms.is_running and ms._thread is None and not thread.is_alive()
+    assert [len(got[c]) for c in range(C)] == [len(want[c]) for c in range(C)]
+    assert min(len(want[c]) for c in range(C)) >= 3
+    for c in range(C):
+        assert all(np.array_equal(a, b) for a, b in zip(got[c], want[c])), c
+
+
 def test_example_torch_multi_target(tmp_path):
     out = run_example([os.path.join(EX, "torch_multi_target.py"), "3", "--device", "cpu"],
                       tmp_path)
