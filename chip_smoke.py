@@ -115,7 +115,22 @@
    branches IF nodes; the channel mesh one ChannelRunner replay a block)
    in turns, every replay bit for bit the eager step, the bodies by
    device counters against the rounds and frames, K1's entries by the
-   profiler, each graph's nodes and the capture's memory;
+   profiler, each graph's nodes and the capture's memory; the time-sharded
+   step also under the post-process orders with autoshift;
+9b. what users toggle (phase 11): every post-process order and sync flag
+   of the reference's PARAM registry, fast_sync and the plain resampler
+   forms (FLAG_SETS, F1-F9) through Session and the block runner at
+   64 MS/s, each against the CPU step (integers exact, frames within the
+   path's tolerance), its IF-node replays bit for bit the eager step under
+   set_sync_debug_mode("error") with the bodies counted, its kernel once a
+   block by the profiler and ms a block in turns with Params(); config 5's
+   ChannelRunner and MultiSession under three flag sets, and the gated
+   channel form at 8 MS/s against the CPU; TSDR.set_param through every
+   toggle and back, twice, on the card and on the CPU (frames held, each
+   flip's first block and memory, no capture and no growth in the second
+   cycle); cli.main under --autoshift --fast-sync --no-pll --motionblur
+   0.5 against a hand-built Session; the viewer's s, a, f and o keys
+   typed over a pty mid-run;
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -146,6 +161,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 from tempestsdr_tpu_torch import TSDR, cli, kernels, native, superband  # noqa: E402
+from tempestsdr_tpu_torch import tui as tui_mod  # noqa: E402
 from tempestsdr_tpu_torch.config import PIXEL_SPECIAL_VALUE_G, PipelineConfig  # noqa: E402
 from tempestsdr_tpu_torch.kernels import build, graph_cond  # noqa: E402
 from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
@@ -175,7 +191,7 @@ from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
     box_resample_strided,
     resample_counts,
 )
-from tempestsdr_tpu_torch.params import Params  # noqa: E402
+from tempestsdr_tpu_torch.params import PARAM, Params  # noqa: E402
 from tempestsdr_tpu_torch.parallel import (  # noqa: E402
     make_channel_step,
     make_grid_step,
@@ -204,7 +220,12 @@ from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
     resolve_batch_blocks,
     warm_compile_step,
 )
-from tempestsdr_tpu_torch.stream.graph import BlockRunner, ChannelRunner, Stage  # noqa: E402
+from tempestsdr_tpu_torch.stream.graph import (  # noqa: E402
+    BlockRunner,
+    ChannelRunner,
+    Stage,
+    sync_debug,
+)
 from tempestsdr_tpu_torch.stream.state import StepOutputs, init_state, state_leaves  # noqa: E402
 from tempestsdr_tpu_torch.utils.profiling import (  # noqa: E402
     measure_dispatch_floor,
@@ -1160,11 +1181,12 @@ class PlainPerChannel:
                 types.SimpleNamespace(**{f: stack(outs, f) for f in CHANNEL_INTS + ("frame",)}))
 
 
-def hold_channels(name, steps, cfg, n_ch, blocks, tol, drop_channel=1, drop=37777):
+def hold_channels(name, steps, cfg, n_ch, blocks, tol, drop_channel=1, drop=37777,
+                  motionblur=0.0):
     """Two channel steps ((step, device) each) over the same blocks, channel
-    drop_channel losing `drop` samples before block 1: every integer output
-    and carry equal, frames finite and within tol. Returns the worst frame
-    difference."""
+    drop_channel losing `drop` samples before block 1, every channel at
+    `motionblur`: every integer output and carry equal, frames finite and
+    within tol. Returns the worst frame difference."""
     states = [stack_states(cfg, n_ch, device=d) for _, d in steps]
     worst, emitted = 0.0, 0
     for b, raws in enumerate(blocks):
@@ -1172,7 +1194,7 @@ def hold_channels(name, steps, cfg, n_ch, blocks, tol, drop_channel=1, drop=3777
         outs = []
         for i, (step, d) in enumerate(steps):
             states[i], out = step(states[i], torch.from_numpy(raws).to(d),
-                                  StepControls(dropped, 0, 0.0))
+                                  StepControls(dropped, 0, motionblur))
             outs.append(out)
         a, c = outs
         assert torch.isfinite(a.frame).all() and torch.isfinite(c.frame).all(), (name, b)
@@ -1289,7 +1311,7 @@ def multisession_run(cfg, srcs, n_blocks, smi):
                 k1_launches_in_4_blocks=held["k1_launches"], branch_nodes_4_blocks=held)
 
 
-def multisession_held(cfg, srcs, n_blocks=4):
+def multisession_held(cfg, srcs, n_blocks=4, params=Params(), per_body=None):
     """MultiSession over n_blocks under the profiler: K1 once per channel a
     block from inside the graph and no other kernel of the port, every
     channel's frames the eager channel step's bit for bit, and the round and
@@ -1298,12 +1320,13 @@ def multisession_held(cfg, srcs, n_blocks=4):
     exactly)."""
     n_ch = len(srcs)
     blocks = channel_blocks(srcs)[:n_blocks]
-    eager = make_channels_step_hybrid(cfg, Params(), n_ch, device=DEV)
-    per_body = body_kernels(eager, stack_states(cfg, n_ch, device=DEV),
-                            torch.from_numpy(blocks[0]).to(DEV))
+    eager = make_channels_step_hybrid(cfg, params, n_ch, device=DEV)
+    if per_body is None:  # a body's kernels, unless the caller counted them
+        per_body = body_kernels(eager, stack_states(cfg, n_ch, device=DEV),
+                                torch.from_numpy(blocks[0]).to(DEV))
     want, flags = eager_channel_frames(eager, blocks)
     got = [[] for _ in range(n_ch)]
-    counted = MultiSession(cfg, Params(), srcs, on_frame=lambda c, f: got[c].append(np.array(f)),
+    counted = MultiSession(cfg, params, srcs, on_frame=lambda c, f: got[c].append(np.array(f)),
                            device=DEV)
     with card_counts() as launches:
         counted.run(max_blocks=n_blocks)
@@ -1825,19 +1848,17 @@ def check_range_entry(cfg, T=T_RANKS):
         **bound(4 * (S + 2 * taps) + 4 * mpl + 4 * 8, mpl * taps * 6 + mpl))
 
 
-def tui_over_pty(cfg, n_blocks=3):
-    """cli.main([... "--tui" ...]) in this process with a pty as its
-    terminal, 8 MS/s on the card: the viewer streams n_blocks (K1 once per
-    block on the card, no other kernel; the frames the eager step's over the
-    synthetic source's blocks) and writes half-block video and its status
-    bar."""
+@contextlib.contextmanager
+def pty_terminal(rows=40, cols=120):
+    """This process's stdin and stdout on a pty for the enclosed code (the
+    viewer's terminal); yields the pty's master (to type keys into) and the
+    list of what the viewer has written, drained on a thread."""
     import fcntl
     import pty
-    import struct
     import termios
 
     master, slave = pty.openpty()
-    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH", 40, 120, 0, 0))
+    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH", rows, cols, 0, 0))
     out, stop = [], threading.Event()
 
     def drain():  # keep the pty's buffer empty, or the viewer's writes block
@@ -1852,8 +1873,25 @@ def tui_over_pty(cfg, n_blocks=3):
     saved = sys.stdin, sys.stdout
     sys.stdin = os.fdopen(slave, "rb", buffering=0, closefd=False)
     sys.stdout = os.fdopen(slave, "w", buffering=1, closefd=False)
-    t0 = time.perf_counter()
     try:
+        yield master, out
+    finally:
+        sys.stdin, sys.stdout = saved
+        time.sleep(0.5)
+        stop.set()
+        os.close(slave)
+        reader.join(timeout=10)
+        os.close(master)
+
+
+def tui_over_pty(cfg, n_blocks=3):
+    """cli.main([... "--tui" ...]) in this process with a pty as its
+    terminal, 8 MS/s on the card: the viewer streams n_blocks (K1 once per
+    block on the card, no other kernel; the frames the eager step's over the
+    synthetic source's blocks) and writes half-block video and its status
+    bar."""
+    with pty_terminal() as (_, out):
+        t0 = time.perf_counter()
         with card_counts() as launches, session_frames((cfg.height, cfg.width)) as frames:
             rc = cli.main(["--source", "synthetic", "--source-params",
                            f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} {cfg.samplerate} 0.02",
@@ -1861,14 +1899,7 @@ def tui_over_pty(cfg, n_blocks=3):
                            "--rate", str(cfg.refreshrate), "--tui", "--blocks", str(n_blocks),
                            "--batch-blocks", "1"])  # "auto" (--tui's default) may round
         # the blocks up to a whole batch; the CPU tests drive the default
-    finally:
-        sys.stdin, sys.stdout = saved
-    dt = time.perf_counter() - t0
-    time.sleep(0.5)
-    stop.set()
-    os.close(slave)
-    reader.join(timeout=10)
-    os.close(master)
+        dt = time.perf_counter() - t0
     text = b"".join(out)
     assert rc == 0, rc
     # one more where the session captured its graph in the run (its eager
@@ -1907,7 +1938,12 @@ def sharded_phase(smi):
             runs = (("time-sharded", Params(framerate_pll=False), 12, 1),
                     ("time-sharded fir31", Params(framerate_pll=False, fir_lowpass_taps=31), 4, 1),
                     ("time-sharded nearest", Params(framerate_pll=False, nearest_neighbour=True),
-                     4, 0))
+                     4, 0),
+                    # the post-process orders with autoshift: the full _post_process in
+                    # each rank's back half
+                    ("time-sharded orders", Params(framerate_pll=False, lowpass_before_sync=True,
+                                                   autogain_after_proc=True, autoshift=True),
+                     4, 1))
             for name, params, nb, per_block in runs:
                 ref = run_reference(make_step(g64, params, device=DEV),
                                     init_state(g64, params.fir_lowpass_taps, device=DEV),
@@ -1918,6 +1954,8 @@ def sharded_phase(smi):
             by_path["time-sharded T=4 64MS/s, 12 blocks (range entry, each rank)"] = \
                 rows["time-sharded"]["launches"]["box_resample_range_strided_cuda"]
             assert by_path["time-sharded T=4 64MS/s, 12 blocks (range entry, each rank)"] == 12
+            by_path["time-sharded orders T=4 64MS/s, 4 blocks (range entry, each rank)"] = \
+                rows["time-sharded orders"]["launches"]["box_resample_range_strided_cuda"]
 
             # the grid: 2 channels of their own raster widths, each over 2 ranks
             srcs = channel_sources(g64, 2, 4)
@@ -2052,14 +2090,19 @@ def card_counts():
         got[wrapper] = sum(c for k, c in got.kernels.items() if name in k)
 
 
-def eager_outputs(step, state, raws, controls):
-    """The step block by block; per field, the outputs stacked over the
-    blocks (as a runner stacks them)."""
+def stepped(step, state, raws, controls):
+    """The step block by block: its final state and, per field, its outputs
+    stacked over the blocks (as a runner stacks them)."""
     outs = []
     for raw, ctl in zip(raws, controls):
         state, out = step(state, raw, StepControls(*ctl))
         outs.append(out)
-    return StepOutputs(*(torch.stack(list(v)) for v in zip(*outs)))
+    return state, StepOutputs(*(torch.stack(list(v)) for v in zip(*outs)))
+
+
+def eager_outputs(step, state, raws, controls):
+    """stepped's outputs."""
+    return stepped(step, state, raws, controls)[1]
 
 
 def batches_of(runner, raws, controls, k):
@@ -2154,13 +2197,13 @@ def cpu_outputs(cfg, raws, controls):
                          [r.cpu() for r in raws], controls)
 
 
-def held_to_cpu(got, want, what):
-    """Integer outputs equal, frames within GRAPH_TOL; returns the worst
-    frame difference."""
+def held_to_cpu(got, want, what, tol=GRAPH_TOL):
+    """Integer outputs equal, frames within tol; returns the worst frame
+    difference."""
     for f in CHANNEL_INTS:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), (what, f)
     err = (got.frame.cpu() - want.frame).abs().max().item()
-    assert err <= GRAPH_TOL, (what, err)
+    assert err <= tol, (what, err)
     return err
 
 
@@ -2363,7 +2406,8 @@ def body_kernels(step, state, raw):
     with card_counts() as trace:
         step(state, raw, StepControls())
     per = (trace.named(ROUND_KERNEL) / c, trace.named(POST_KERNEL) / (c * k))
-    assert all(v > 0 and float(v).is_integer() for v in per), per
+    assert all(float(v).is_integer() for v in per) and per[1] > 0, per
+    assert (per[0] > 0) == step.run_autocorr, per  # no round with the plots off
     return int(per[0]), int(per[1])
 
 
@@ -2433,17 +2477,21 @@ def counted_bodies(slots=16):
         graph_cond.Branches.if_else = real
 
 
-def held_counts(got, out, gated, evaluations, shifts, what):
+def held_counts(got, out, gated, evaluations, shifts, what, rounds_run=True):
     """The bodies the counters saw, against the packed flags: every round
     and emit branch evaluated (`evaluations`: (round, emit) evaluations in
     the run) took its taken side as often as the flags say and its other
-    side every other time; the sync-skip shift ran `shifts` times."""
+    side every other time; the sync-skip shift ran `shifts` times. Without
+    rounds_run (the plots off) the step has no round branch at all."""
     seen = {name: int(got.cnt[i]) for name, i in got.index.items()}
     rounds, emits = taken_bodies(out, gated)
     pre = "any:" if gated else ""
     want = {pre + "round_body": rounds, pre + "round_body:else": evaluations[0] - rounds,
             pre + "emit_fn": emits, pre + "emit_fn:else": evaluations[1] - emits,
             "shift": shifts}
+    if not rounds_run:
+        assert rounds == 0, (what, rounds)
+        want = {k: v for k, v in want.items() if "round_body" not in k}
     assert seen == want, (what, seen, want)
     return seen
 
@@ -2457,16 +2505,18 @@ def hold_replays(name, runner, blocks, ctls):
     final state bit for bit the eager step's, the bodies run (counters,
     held) and launched by kernel name (profiler, reported) against the
     packed flags, the graph's parent, IF and body nodes (less the counters'
-    nodes, one a body), device ms a block and the busy share."""
-    cfg, k = runner.config, runner.n_blocks
+    nodes, one a body), device ms a block and the busy share. Each replay
+    runs under set_sync_debug_mode("error"), its raws and controls already
+    on the card: a host read inside it raises."""
+    cfg, k, fir = runner.config, runner.n_blocks, runner.params.fir_lowpass_taps
     channels = isinstance(runner, ChannelRunner)
     if channels:
-        new_state = lambda: stack_states(cfg, k, device=DEV)  # noqa: E731
+        new_state = lambda: stack_states(cfg, k, fir, device=DEV)  # noqa: E731
         batch, stack = 1, (lambda i: blocks[i])
         ctl_of, eager_ctl = (lambda i: np.asarray(ctls[i], np.float64)), (
             lambda i: StepControls(*np.asarray(ctls[i]).T))
     else:
-        new_state = lambda: init_state(cfg, device=DEV)  # noqa: E731
+        new_state = lambda: init_state(cfg, fir, device=DEV)  # noqa: E731
         batch, stack = k, (lambda i: torch.stack(blocks[i:i + k]))
         ctl_of, eager_ctl = (lambda i: np.asarray(ctls[i:i + k], np.float64)), (
             lambda i: StepControls(*ctls[i]))
@@ -2483,9 +2533,12 @@ def hold_replays(name, runner, blocks, ctls):
                   capture_peak_bytes=torch.cuda.max_memory_allocated(DEV) - mem0)
     counters.cnt.zero_()
     state, outs = new_state(), []
+    inputs = [(stack(i), torch.from_numpy(ctl_of(i)).to(DEV)) for i in range(0, len(blocks), batch)]
+    torch.cuda.synchronize()
     with card_counts() as trace:
-        for i in range(0, len(blocks), batch):
-            state, out, _ = runner.run(state, stack(i), ctl_of(i))
+        for raws, ctl in inputs:
+            with sync_debug("error"):
+                state, out, _ = runner.run(state, raws, ctl)
             outs.append(StepOutputs(*(x.clone() for x in out)))
     join = torch.stack if channels else torch.cat
     got = StepOutputs(*(join(list(v)) for v in zip(*outs)))
@@ -2507,7 +2560,8 @@ def hold_replays(name, runner, blocks, ctls):
     return dict(graph=name, census=census, memory=memory,
                 bodies=dict(rounds=int(got.ac_plot_valid.sum()), frames=int(got.frame_valid.sum()),
                             counted=held_counts(counters, got, gated,
-                                                (n * per_block, n * per_block * kf), shifts, name),
+                                                (n * per_block, n * per_block * kf), shifts, name,
+                                                runner.step.run_autocorr),
                             profiler=profiler_bodies(trace, per_body, got, gated)),
                 under_profiler_with_body_counters=dict(device_ms_per_block=trace.device_ms / n,
                                     transfer_ms_per_block=trace.transfer_ms / n,
@@ -2615,13 +2669,16 @@ def i24_le(f32):
     return v.view(np.uint8).reshape(-1, 4)[:, :3].tobytes(), (v / (1 << 23)).astype(np.float32)
 
 
-def source_session(cfg, params, source, count=False, **run):
-    """Session.run over `source` on the card: (frames, session, seconds,
-    launches under the profiler or None). A fault on the session's own
-    thread, or on a worker thread (worker_faults), fails the run."""
+def source_session(cfg, params, source, count=False, motionblur=0.0, batch=1, **run):
+    """Session(batch_blocks=batch).run over `source` on the card at
+    `motionblur`: (frames, session, seconds, launches under the profiler or
+    None). A fault on the session's own thread, or on a worker thread
+    (worker_faults), fails the run."""
     frames, errors = [], []
     sess = Session(cfg, params, source, SessionCallbacks(on_frame=frames.append,
-                                                         on_exception=errors.append), device=DEV)
+                                                         on_exception=errors.append),
+                   batch_blocks=batch, device=DEV)
+    sess.set_motionblur(motionblur)
     torch.cuda.synchronize()
     with (card_counts() if count else contextlib.nullcontext(None)) as launches:
         t0 = time.perf_counter()
@@ -2645,16 +2702,21 @@ def cpu_step(cfg, params, blocks):
     return frames, state
 
 
-def held_to_cpu_step(frames, state, want, want_state, what):
-    """The card's frames and final state against the CPU step's: as many
-    frames, each within GRAPH_TOL, every integer leaf of the state (the
-    carries) equal. Returns the worst frame difference."""
-    assert len(frames) == len(want) > 0, (what, len(frames), len(want))
-    err = max(float(np.abs(a - b).max()) for a, b in zip(frames, want))
-    assert err <= GRAPH_TOL, (what, err)
+def same_ints(state, want_state, what):
+    """Every integer leaf of two states (the carries) equal."""
     for i, (a, b) in enumerate(zip(state_leaves(state), state_leaves(want_state))):
         if not (a.is_floating_point() or a.is_complex()):
-            assert torch.equal(a.cpu(), b), (what, "state leaf", i)
+            assert torch.equal(a.cpu(), b.cpu()), (what, "state leaf", i)
+
+
+def held_to_cpu_step(frames, state, want, want_state, what, tol=GRAPH_TOL):
+    """The card's frames and final state against the CPU step's: as many
+    frames, each within tol, every integer leaf of the state (the carries)
+    equal. Returns the worst frame difference."""
+    assert len(frames) == len(want) > 0, (what, len(frames), len(want))
+    err = max(float(np.abs(a - b).max()) for a, b in zip(frames, want))
+    assert err <= tol, (what, err)
+    same_ints(state, want_state, what)
     return err
 
 
@@ -3158,6 +3220,442 @@ def intake_phase(smi):
     return k1, k2
 
 
+# ---- phase 11: what users toggle ------------------------------------------
+# Every post-process order and sync flag of the reference's PARAM registry
+# (AUTOSHIFT, LOW_PASS_BEFORE_SYNC, AUTOGAIN_AFTER_PROCESSING, FRAMERATE_PLL,
+# AUTOCORR_PLOTS_OFF), fast_sync and the explicit resampler choices, through
+# the captured graphs at 64 MS/s (flags_phase), the channel steps
+# (channel_flags_phase) and the sharded steps (sharded_phase's "time-sharded
+# orders"); live flips through TSDR.set_param, with the gap and the memory of
+# each (flips_phase); the command line's flag options and the terminal
+# viewer's toggle keys (flags_front_doors).
+
+FLAG_SETS = (  # name, Params, motion blur, the kernel of the table it runs (None: a plain form)
+    ("F1 autogain after", Params(autogain_after_proc=True), 0.0, "K1"),
+    ("F2 lowpass first", Params(lowpass_before_sync=True), 0.5, "K1"),
+    ("F3 both orders", Params(autogain_after_proc=True, lowpass_before_sync=True), 0.5, "K1"),
+    ("F4 autoshift", Params(autoshift=True), 0.0, "K1"),
+    ("F5 fast_sync", Params(fast_sync=True), 0.0, "K1"),
+    ("F6 PLL off, plots off", Params(framerate_pll=False, autocorr_plots_off=True), 0.0, "K1"),
+    ("F7 fused with toggles",
+     Params(resampler="fused", autogain_after_proc=True, autoshift=True), 0.0, "K2"),
+    ("F8 every toggle", Params(resampler="pallas", fir_lowpass_taps=31, lowpass_before_sync=True,
+                               autogain_after_proc=True, autoshift=True, fast_sync=True), 0.5, "K3"),
+    ("F9 strided", Params(resampler="strided"), 0.0, None),
+    ("F9 chunked", Params(resampler="chunked"), 0.0, None),
+)
+FLAG_BLOCKS = 12  # 4 for F9's plain forms
+
+
+def changed(params):
+    """The fields of params that differ from Params()'s."""
+    return {k: v for k, v in vars(params).items() if v != getattr(Params(), k)}
+
+
+def flag_session(cfg, params, blocks, motionblur, batch=1, count=False):
+    """source_session over the pre-made uint8 blocks: (frames, ms a block
+    by host clock, the session, launches on the card under the profiler or
+    None)."""
+    src = ReplayU8(cfg, render_test_pattern(cfg.height, cfg.width // 2), 0)
+    src.blocks = blocks
+    frames, sess, dt, launches = source_session(cfg, params, src, count, motionblur, batch)
+    return frames, dt / len(blocks) * 1e3, sess, launches
+
+
+def valid_frames(outs):
+    """The valid frames of outputs stacked over the blocks, in stream order."""
+    return [f for b in range(outs.frame_valid.shape[0])
+            for _, f in _valid_frames(StepOutputs(*(x[b] for x in outs)))]
+
+
+def flag_set(cfg, name, params, motionblur, kid, blocks, batches=(1,)):
+    """One set of FLAG_SETS over the blocks, every block at `motionblur`:
+    (a) the card's eager step against the CPU step block by block (every
+    integer output and carry exact, frames within the path's tolerance),
+    then Session at each batch size: its frames the eager step's bit for
+    bit, and within the tolerance of the CPU step's with the carries
+    exact; (b) the block runner at each batch size, its IF-node replays bit
+    for bit the eager step and its bodies counted against the rounds and
+    frames (hold_replays), (d) each replay under set_sync_debug_mode("error");
+    (c) the set's kernel once a block by the profiler and no other kernel
+    of the table. Also ms a block by host clock in turns with Params() (the
+    same blocks and blur), device ms a block under the profiler, and under
+    autoshift the two gathers' device ms on a frame."""
+    n, fir = len(blocks), params.fir_lowpass_taps
+    tol = STEP_TOL["pallas"] if kid == "K3" else GRAPH_TOL
+    want = {KERNELS[kid][0].__name__: n} if kid else {}
+    ctls = [(0, 0, motionblur)] * n
+    raws = [torch.from_numpy(b).to(DEV) for b in blocks]
+    cpu_state, cpu = stepped(make_step(cfg, params, device="cpu"),
+                             init_state(cfg, fir, device="cpu"),
+                             [torch.from_numpy(b) for b in blocks], ctls)
+    state, eager = stepped(make_step(cfg, params, device=DEV), init_state(cfg, fir, device=DEV),
+                           raws, ctls)
+    worst = held_to_cpu(eager, cpu, f"{name}: the eager step", tol)
+    same_ints(state, cpu_state, f"{name}: the eager step's carries")
+    frames_eager, frames_cpu = valid_frames(eager), valid_frames(cpu)
+
+    ms, held, device_ms = {"Params()": [], name: []}, {}, {}
+    for batch in batches:
+        for p in (Params(), params):
+            warm_compile_step(cfg, p, batch_blocks=batch, raw_dtype=np.uint8, device=DEV)
+        if batch == 1:
+            for label, p in (("Params()", Params()), (name, params), (name, params),
+                             ("Params()", Params())) * 2:
+                ms[label].append(flag_session(cfg, p, blocks, motionblur)[1])
+        got, _, sess, launches = flag_session(cfg, params, blocks, motionblur, batch, count=True)
+        only(launches, **want)
+        same_frames(got, frames_eager, f"{name}: Session batch {batch} under the profiler")
+        held[batch] = held_to_cpu_step(got, sess.state, frames_cpu, cpu_state,
+                                       f"{name}: Session batch {batch}", tol)
+        device_ms[batch] = dict(device_ms=launches.device_ms / n,
+                                transfer_ms=launches.transfer_ms / n,
+                                wall_ms=launches.wall_ms / n)
+    graphs = [hold_replays(f"{name}: BlockRunner K={k}, {n} blocks",
+                           BlockRunner(cfg, params, k, DEV), raws, ctls) for k in batches]
+    row = dict(set=name, params=changed(params), motionblur=motionblur, kernel=kid, blocks=n,
+               frames=len(frames_eager), rounds=int(eager.ac_plot_valid.sum()),
+               launches={k: v for k, v in launches.items() if v} if kid else {
+                   "table kernels": sum(launches.values())},
+               worst_frame_diff_vs_cpu=max(worst, *held.values()), tol=tol,
+               graphs=[dict(graph=g["graph"], census=g["census"],
+                            after_capture_mb=g["memory"]["after_capture_bytes"] / 2**20,
+                            capture_peak_mb=g["memory"]["capture_peak_bytes"] / 2**20,
+                            bodies=g["bodies"]["counted"]) for g in graphs],
+               ms_a_block_host_clock_in_turns=ms,
+               ms_a_block_median={k: float(np.median(v)) for k, v in ms.items()},
+               under_profiler_a_block=device_ms)
+    if params.autoshift:
+        b = int(eager.frame_valid.nonzero()[0, 0])
+        frame, sx, sy = eager.frame[b], state.sync_x, state.sync_y
+        row["autoshift_gathers_ms_flushed"] = time_launches(
+            lambda: pipeline_mod._sync_apply(params, frame, sx, sy))
+    return row
+
+
+def flags_phase(smi):
+    """Phase 11a: FLAG_SETS at 64 MS/s (flag_set; F3 at batch 1 and 4).
+    Returns the launches of K1, K2 and K3 by path."""
+    t0 = time.time()
+    cfg = GEOMETRIES["64MS/s"]
+    blocks = ReplayU8(cfg, render_test_pattern(cfg.height, cfg.width // 2), FLAG_BLOCKS).blocks
+    by_path = {"K1": {}, "K2": {}, "K3": {}}
+    # what the sets' device ms a block under the profiler are read against
+    warm_compile_step(cfg, Params(), batch_blocks=1, raw_dtype=np.uint8, device=DEV)
+    default_ms = flag_session(cfg, Params(), blocks, 0.0, count=True)[3].device_ms / FLAG_BLOCKS
+    print(f"flags Params() (64MS/s, {smi}): device ms a block under the profiler "
+          f"{default_ms}", flush=True)
+    for name, params, motionblur, kid in FLAG_SETS:
+        nb = FLAG_BLOCKS if kid else 4
+        row = flag_set(cfg, name, params, motionblur, kid, blocks[:nb],
+                       (1, 4) if name.startswith("F3") else (1,))
+        print(f"flags {name} (64MS/s, {smi}): " + json.dumps(row), flush=True)
+        if kid:
+            by_path[kid][f"flags {name} Session 64MS/s, {nb} blocks"] = \
+                row["launches"][KERNELS[kid][0].__name__]
+    print(f"flags phase took {time.time() - t0:.1f} s")
+    return by_path
+
+
+CHANNEL_FLAG_SETS = (  # tests/test_torch_channels.py's non-default sets; motion blur
+    ("autoshift", Params(autoshift=True), 0.0),
+    ("markers + autogain after", Params(debug_markers=True, autogain_after_proc=True), 0.0),
+    ("lowpass first + fast_sync", Params(lowpass_before_sync=True, fast_sync=True), 0.5),
+)
+
+
+def channel_flags_phase(smi, n_blocks=4):
+    """Phase 11b: the channel steps under the flags. Config 5 (8 channels at
+    16 MS/s): per set of CHANNEL_FLAG_SETS the ChannelRunner's replays bit
+    for bit its eager channel step with the bodies counted (hold_replays: a
+    drop on channel 1, the set's blur on every channel), and MultiSession
+    over one replay a block (K1 once per channel a block by the profiler,
+    every channel's frames the eager step's); then the gated form (C = 3 at
+    8 MS/s, K = 4) under lowpass first + fast_sync against the CPU's channel
+    step (integers exact, frames within CHANNEL_TOL), its replays bit for
+    bit its eager step. Returns K1's launches by path."""
+    t0 = time.time()
+    srcs = channel_sources(CH5, N_CH, n_blocks)
+    blocks = channel_blocks(srcs)
+    raws = [torch.from_numpy(b).to(DEV) for b in blocks]
+    by_path = {}
+    for name, params, motionblur in CHANNEL_FLAG_SETS:
+        ctls = [np.tile([0.0, 0.0, motionblur], (N_CH, 1)) for _ in blocks]
+        ctls[1][1, 0] = 37777  # channel 1 drops before block 1
+        # the runner MultiSession takes from the cache: captured (and held) here
+        runner = MultiSession(CH5, params, srcs, device=DEV)._runner
+        graph = hold_replays(f"ChannelRunner config 5 {name}, {n_blocks} blocks", runner, raws,
+                             ctls)
+        profiled = graph["bodies"]["profiler"]
+        held = multisession_held(CH5, srcs, n_blocks, params,
+                                 (profiled["per_round_body"], profiled["per_emit_body"]))
+        print(f"channel flags {name} (8x16MS/s, {smi}): " + json.dumps(dict(
+            params=changed(params), motionblur=motionblur, census=graph["census"],
+            after_capture_mb=graph["memory"]["after_capture_bytes"] / 2**20,
+            capture_peak_mb=graph["memory"]["capture_peak_bytes"] / 2**20,
+            bodies=graph["bodies"], multisession=held)), flush=True)
+        by_path[f"MultiSession 8x16MS/s {name}, {n_blocks} blocks"] = held["k1_launches"]
+    g8 = GEOMETRIES["8MS/s"]
+    params = Params(lowpass_before_sync=True, fast_sync=True)
+    gated = RunnerStep(MultiStepRunner(g8, params, 3, DEV))
+    worst = hold_channels(
+        "gated graph (make_multi_step, 8MS/s, C=3) vs the CPU's channel step, lowpass first "
+        "+ fast_sync", [(gated, DEV), (ChannelsStep(g8, params, 3, "cpu", cond_mode="batched"),
+                                       "cpu")],
+        g8, 3, channel_blocks(channel_sources(g8, 3, n_blocks)), CHANNEL_TOL, motionblur=0.5)
+    replays_held(gated, "gated graph under lowpass first + fast_sync")
+    print("channel flags gated (8MS/s, C=3, K=4, lowpass first + fast_sync, blur 0.5) "
+          + json.dumps(dict(card=smi, blocks=n_blocks, card_vs_cpu_max_abs=worst,
+                            tol=CHANNEL_TOL, census=gated.runner.census())))
+    print(f"channel flags took {time.time() - t0:.1f} s")
+    return by_path
+
+
+# what a user toggles, in order, through the API (the GUI's buttons, the
+# TUI's keys, the command line's options); then each back, in reverse
+FLIP_CYCLE = ((PARAM.AUTOSHIFT, 1), (PARAM.LOW_PASS_BEFORE_SYNC, 1),
+              (PARAM.AUTOGAIN_AFTER_PROCESSING, 1), (PARAM.FRAMERATE_PLL, 0),
+              (PARAM.AUTOCORR_PLOTS_OFF, 1), ("fast_sync", True),
+              (PARAM.NEAREST_NEIGHBOUR_RESAMPLING, 1))
+FLIP_EVERY = 2  # frames between two flips
+
+
+def flip_run(cfg, device, had):
+    """TSDR in the foreground on the looping synthetic source (batch 1,
+    motion blur 0.5): FLIP_CYCLE and back, twice, through set_param and
+    set_extra_params from on_frame every FLIP_EVERY frames, so each flip
+    lands on a known block. Returns the frames, the TSDR, the wall seconds
+    and per flip: the toggle, its cycle, the graphs the block after it
+    captured, that block's ms (from the flip's apply at the block's arrival
+    to the end of its dispatch, fetch and downloads) and, on the card, the
+    memory allocated before and after it and reserved after it. `had`
+    gains, for each Params the run visits, the raw dtypes its cached runner
+    held a graph for before the run."""
+    back = [(k, (not v) if isinstance(k, str) else 1 - v) for k, v in reversed(FLIP_CYCLE)]
+    cycle = list(FLIP_CYCLE) + back
+    schedule = cycle * 2
+    n_frames = FLIP_EVERY * (len(schedule) + 1)
+    card = torch.device(device).type == "cuda"
+    frames, flips, captures, pending = [], [], [], {}
+    rx = TSDR(block_samples=cfg.block_samples, device=device)
+    rx.load_source("synthetic", f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} "
+                                f"{cfg.samplerate} 0.02")
+    rx.set_resolution(cfg.height, cfg.refreshrate)
+    rx.set_motionblur(0.5)
+
+    def on_frame(f):
+        frames.append(f)
+        i, due = divmod(len(frames), FLIP_EVERY)
+        if due == 0 and 1 <= i <= len(schedule):
+            key, value = schedule[i - 1]
+            flips.append(dict(flip=f"{getattr(key, 'name', key)} {int(value)}",
+                              cycle=1 + (i - 1) // len(cycle)))
+            if isinstance(key, str):
+                rx.set_extra_params(**{key: value})
+            else:
+                rx.set_param(int(key), value)
+            flips[-1]["params"] = rx._params
+
+    real_apply, real_dispatch = Session._apply_pending_params, Session._dispatch_blocks
+    real_capture = BlockRunner._capture
+
+    def apply(self):
+        pending.update(t0=time.perf_counter(), flip=flips[-1], captures=len(captures))
+        if card:
+            flips[-1]["allocated_before_mb"] = torch.cuda.memory_allocated(DEV) / 2**20
+        real_apply(self)
+
+    def dispatch(self, raws, dropped):
+        got = real_dispatch(self, raws, dropped)
+        if "t0" in pending:
+            flip = pending.pop("flip")
+            flip.update(first_block_ms=(time.perf_counter() - pending.pop("t0")) * 1e3,
+                        captured=len(captures) - pending.pop("captures"))
+            if card:
+                flip.update(allocated_after_mb=torch.cuda.memory_allocated(DEV) / 2**20,
+                            reserved_after_mb=torch.cuda.memory_reserved(DEV) / 2**20)
+        return got
+
+    def capture(self, dtype):
+        captures.append((self.params, dtype))
+        return real_capture(self, dtype)
+
+    p = Params()
+    for key, value in [(None, 0)] + schedule:
+        if key is not None:
+            p = p.replace(**{key: value}) if isinstance(key, str) else p.with_int_param(key, value)
+        had[p] = graphs_of(cfg, p) if card else set()
+    Session._apply_pending_params, Session._dispatch_blocks = apply, dispatch
+    BlockRunner._capture = capture
+    try:
+        t0 = time.perf_counter()
+        got = rx.start(on_frame=on_frame, max_frames=n_frames)
+        if card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        Session._apply_pending_params, Session._dispatch_blocks = real_apply, real_dispatch
+        BlockRunner._capture = real_capture
+    assert got == len(frames) == n_frames, (got, len(frames), n_frames)
+    assert len(flips) == len(schedule) and all("first_block_ms" in f for f in flips), flips
+    assert int(rx.session.state.frame_count) == n_frames, int(rx.session.state.frame_count)
+    assert rx.session.params == Params(), rx.session.params
+    return frames, rx, wall, flips
+
+
+def flips_phase(smi):
+    """Phase 11c: flip_run at 64 MS/s on the card and on the CPU. Held: as
+    many frames, each within GRAPH_TOL of the CPU's (the first after each
+    lowpass_before_sync flip shows the zeroed screen buffer in both), the
+    carries exact, the frame counter counting on across every flip; the
+    first cycle captures one graph for each Params it has not run before and
+    the second none; the memory allocated and reserved after the second
+    cycle no more than after the first. Reports each flip's first block (a
+    capture in the first cycle where the Params is new: cold; warm
+    otherwise) and its memory, and the MB a new cached runner adds."""
+    cfg = GEOMETRIES["64MS/s"]
+    # the raw dtypes each Params' cached runner holds a graph for before the run
+    had = {}
+    frames, rx, wall, flips = flip_run(cfg, DEV, had)
+    frames_cpu, rx_cpu, wall_cpu, _ = flip_run(cfg, "cpu", {})
+    worst = held_to_cpu_step(frames, rx.session.state, frames_cpu, rx_cpu.session.state,
+                             "flips card vs CPU")
+    # the first cycle captures, at the block after a flip, the float32 graph
+    # of each Params that had none; the second captures nothing
+    visited = {Params()}
+    for f in flips:
+        new = f["params"] not in visited and torch.float32 not in had[f["params"]]
+        assert f["captured"] == int(new), f
+        visited.add(f["params"])
+    half = len(flips) // 2
+    first, second = flips[:half], flips[half:]
+    assert sum(f["captured"] for f in second) == 0, second
+    cold = [f for f in first if f["captured"]]
+    new_mb = [f["allocated_after_mb"] - f["allocated_before_mb"] for f in cold]
+    end1, end2 = first[-1], second[-1]
+    assert end2["allocated_after_mb"] <= end1["allocated_after_mb"], (end1, end2)
+    assert end2["reserved_after_mb"] <= end1["reserved_after_mb"], (end1, end2)
+    for f in flips:
+        f["params"] = changed(f["params"])
+    row = dict(card=smi, blocks=rx.session.meter.total_samples // cfg.block_samples,
+               frames=len(frames), flips=len(flips), card_wall_s=wall, cpu_wall_s=wall_cpu,
+               max_abs_vs_cpu=worst, captures_cycle_1=len(cold), captures_cycle_2=0,
+               cold_first_block_ms=[f["first_block_ms"] for f in cold],
+               warm_first_block_ms_cycle_2=[f["first_block_ms"] for f in second],
+               new_runner_allocated_mb=new_mb,
+               reserved_mb_after_cycle=[end1["reserved_after_mb"], end2["reserved_after_mb"]],
+               allocated_mb_after_cycle=[end1["allocated_after_mb"], end2["allocated_after_mb"]],
+               per_flip=flips)
+    print("flips (TSDR.set_param at 64MS/s, card against CPU) " + json.dumps(row), flush=True)
+    return row
+
+
+def cli_under_flags(cfg, tmp, n_blocks=8):
+    """cli.main with --autoshift --fast-sync --no-pll --motionblur 0.5 over
+    a 64 MS/s uint8 capture: K1 once a block (and once more for the eager
+    block ahead of the new Params' capture), every frame saved and equal bit
+    for bit to a hand-built Session's with the same Params and blur."""
+    path = os.path.join(tmp, "flags64.u8")
+    _, capture = write_capture(cfg, path, n_blocks)
+    out = os.path.join(tmp, "flag_frames")
+    with card_counts() as launches:
+        log, dt = run_cli([
+            "--source", "rawfile", "--source-params", f"{path} {cfg.samplerate} uint8",
+            "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
+            "--rate", str(cfg.refreshrate), "--out", out, "--save-every", "1", "--format", "npy",
+            "--blocks", str(n_blocks), "--autoshift", "--fast-sync", "--no-pll",
+            "--motionblur", "0.5", "--device", str(DEV)])
+    k1 = launches["box_resample_strided_cuda"]
+    assert n_blocks <= k1 <= n_blocks + 1, launches
+    only(launches, box_resample_strided_cuda=k1)
+    params = Params(autoshift=True, fast_sync=True, framerate_pll=False)
+    want = flag_session(cfg, params, capture, 0.5)[0]
+    saved = sorted(os.listdir(out))
+    assert saved == [f"frame_{i:06d}.npy" for i in range(1, len(want) + 1)], saved
+    same_frames([np.load(os.path.join(out, f)) for f in saved], want, "cli under the flags")
+    return dict(blocks=n_blocks, frames=len(saved), k1_launches=k1,
+                per_block_ms_under_profiler=dt / n_blocks * 1e3, log=log[-1])
+
+
+TUI_KEYS = (("s", "Autoshift: on"), ("a", "PLL: off"), ("f", "Fast sync (f32): on"),
+            ("o", "Autocorr off: on"))
+
+
+def tui_toggles_over_pty(cfg, max_blocks=4000):
+    """cli.main([... "--tui" ...]) at 8 MS/s on the card over a pty, the
+    keys of TUI_KEYS typed one by one mid-run, 0.3 s apart once frames
+    stream, then q once three more frames came: every toggle on the status
+    bar and in the TSDR's Params, the loop streaming past the last, K1
+    once a block (and once for each capture's eager block), no worker
+    thread raising."""
+    rxs, real_run_tui = [], tui_mod.run_tui
+
+    def run_tui(rx, **kw):
+        rxs.append(rx)
+        return real_run_tui(rx, **kw)
+
+    sent = []
+    tui_mod.run_tui = run_tui
+    try:
+        with worker_faults(), pty_terminal() as (master, out), \
+                session_frames((cfg.height, cfg.width)) as frames, card_counts() as launches:
+            def press():
+                def wait_for(n, limit=60.0):
+                    t_end = time.time() + limit
+                    while len(frames) < n and time.time() < t_end:
+                        time.sleep(0.01)
+                    return len(frames) >= n
+
+                wait_for(1)
+                for key, _ in TUI_KEYS:
+                    time.sleep(0.3)
+                    sent.append((key, len(frames)))
+                    os.write(master, key.encode())
+                wait_for(sent[-1][1] + 3)
+                os.write(master, b"q")
+
+            presser = threading.Thread(target=press, daemon=True)
+            presser.start()
+            rc = cli.main([
+                "--source", "synthetic", "--source-params",
+                f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} {cfg.samplerate} 0.02",
+                "--block-samples", str(cfg.block_samples), "--height", str(cfg.height),
+                "--rate", str(cfg.refreshrate), "--tui", "--blocks", str(max_blocks),
+                "--batch-blocks", "1", "--device", str(DEV)])
+            presser.join(timeout=30)
+    finally:
+        tui_mod.run_tui = real_run_tui
+    text = b"".join(out).decode(errors="replace")
+    assert rc == 0, rc
+    assert len(sent) == len(TUI_KEYS), sent
+    for key, osd in TUI_KEYS:
+        assert osd in text, (key, osd, text[-500:])
+    rx = rxs[0]
+    assert rx._params == Params(autoshift=True, framerate_pll=False, fast_sync=True,
+                                autocorr_plots_off=True), rx._params
+    assert len(frames) >= sent[-1][1] + 3, (len(frames), sent)
+    blocks = rx.session.meter.total_samples // cfg.block_samples
+    assert blocks < max_blocks, blocks  # q, not the block limit, ended the run
+    k1 = launches["box_resample_strided_cuda"]
+    assert blocks <= k1 <= blocks + 1 + len(TUI_KEYS), (blocks, launches)
+    only(launches, box_resample_strided_cuda=k1)
+    return dict(blocks=int(blocks), frames=len(frames), keys_at_frame=sent, k1_launches=k1,
+                params=changed(rx._params))
+
+
+def flags_front_doors(smi):
+    """Phase 11d: the command line under flag options at 64 MS/s and the
+    terminal viewer's toggle keys at 8 MS/s. Returns K1's launches by path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        row = cli_under_flags(GEOMETRIES["64MS/s"], tmp)
+    print("cli under the flags (64MS/s, --autoshift --fast-sync --no-pll --motionblur 0.5) "
+          + json.dumps(dict(card=smi, **row)))
+    tui = tui_toggles_over_pty(GEOMETRIES["8MS/s"])
+    print("tui toggle keys over a pty (8MS/s) " + json.dumps(dict(card=smi, **tui)))
+    return {f"cli --autoshift --fast-sync --no-pll 64MS/s, {row['blocks']} blocks": row[
+        "k1_launches"], f"tui toggles 8MS/s, {tui['blocks']} blocks": tui["k1_launches"]}
+
+
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
     "K1": (box_resample_strided_cuda, "strided_resample.cu",
            "tempestsdr_tpu/pallas/strided_kernel.py:65"),
@@ -3224,6 +3722,7 @@ def main():
     print(f"per-block host fetch round trip: {fetch_cost_us():.1f} us")
     graph_launches, graph_k2 = graph_step_phase(g64, smi)
     branch_nodes_phase(smi)
+    flag_launches = flags_phase(smi)
 
     with tempfile.TemporaryDirectory() as tmp:
         front_door(g64, tmp, rows["K1"]["per_block_ms_under_profiler"])
@@ -3231,9 +3730,12 @@ def main():
         batched_session(g64)
         live_controls(g64, tmp)
     intake_k1, intake_k2 = intake_phase(smi)
+    flips_phase(smi)
+    flag_launches["K1"].update(flags_front_doors(smi))
     assert superresolution(g64) == 1 << 21  # 2^23 stitched samples a cycle
     numbers_worth_a_line(build_s)
     channel_launches = channels_phase(smi)
+    flag_launches["K1"].update(channel_flags_phase(smi))
     sharded_launches, range_row = sharded_phase(smi)
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
@@ -3254,6 +3756,10 @@ def main():
                  else "fused channel graph 8x16MS/s, 4 blocks"): channel_launches[kid]}
             kern[-1]["launches_by_path"].update(graph_launches if kid == "K1" else graph_k2)
             kern[-1]["launches_by_path"].update(intake_k1 if kid == "K1" else intake_k2)
+        if kid == "K3":
+            kern[-1]["launches_by_path"] = {"pallas Session 64MS/s": launches[kid]}
+        if kid in flag_launches:
+            kern[-1]["launches_by_path"].update(flag_launches[kid])
         if kid == "K1":
             kern[-1]["launches_by_path"].update(sharded_launches)
             kern[-1]["range_entry"] = dict(

@@ -8,7 +8,9 @@ centre tracking with wraparound (round half to even, as torch.round does);
 framerate_pll <- frameratepll (:133-153) with a clamp to the static PLL
 headroom; find_the_sweet_spot_pair, both axes in one batched search (a
 reference form, on no step path). Profile math follows the profile's dtype: f64 by default, f32
-under Params.fast_sync.
+under Params.fast_sync, where each window sum and the total are rounded once
+to f32 from a sum accumulated in f64 (_doubled_cumsum), a deliberate
+departure from the JAX package's f32 running sum.
 
 Everything stays on the profile's device: the per-candidate window sums are
 one gather of the doubled cumsum at device-side offsets, and the winner is
@@ -65,9 +67,20 @@ class PLLState(NamedTuple):
 
 
 def _doubled_cumsum(data: torch.Tensor) -> torch.Tensor:
-    """[..., n] -> [..., 2n + 1]: 0, then the running sum of data twice."""
-    zero = torch.zeros(data.shape[:-1] + (1,), dtype=data.dtype, device=data.device)
-    return torch.cat([zero, torch.cumsum(torch.cat([data, data], dim=-1), -1)], dim=-1)
+    """[..., n] -> [..., 2n + 1] f64: 0, then the running sum of data twice.
+    Always accumulated in f64: an f32 profile's window sums (differences of
+    this sum) are rounded to f32 once, after the subtraction. Taken from an
+    f32 running sum 2n long, they lose their low bits (at 3397 columns its
+    rounding, 0.25, exceeds the gap between neighbouring strips' metrics),
+    and the winning strip is then decided by rounding, which differs with
+    the order of the additions (a card's against the CPU's). This departs
+    on purpose from the JAX package's fast_sync, which differences an f32
+    running sum: the two can pick different strips at a near-tie, and the
+    port's pick is the f64 search's at least as often
+    (tests/test_torch_ops.py::test_fast_sync_at_flagship_width_against_jax)."""
+    zero = torch.zeros(data.shape[:-1] + (1,), dtype=torch.float64, device=data.device)
+    return torch.cat([zero, torch.cumsum(torch.cat([data, data], dim=-1), -1,
+                                         dtype=torch.float64)], dim=-1)
 
 
 def find_best_fit(data: torch.Tensor, totalsum, stripsize):
@@ -77,7 +90,7 @@ def find_best_fit(data: torch.Tensor, totalsum, stripsize):
     n = data.shape[0]
     csum = _doubled_cumsum(data)
     s = int(stripsize)
-    w = csum[s:s + n] - csum[:n]
+    w = (csum[s:s + n] - csum[:n]).to(data.dtype)
     m = (totalsum - w) / (float(n) - s) - w / s
     m = m * m
     j = torch.argmax(m).to(torch.int32)
@@ -100,10 +113,43 @@ def _candidate_sizes(state: SweetspotState, n: int, minsize: int):
     return safe, valid
 
 
+_DEKKER = 134217729.0  # 2^27 + 1: splits an f64 into two halves of 26 bits
+
+
+def _split(v: torch.Tensor):
+    t = v * _DEKKER
+    hi = t - (t - v)
+    return hi, v - hi
+
+
+def _fused_blend(x: torch.Tensor, c: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x*c + y as the JAX step's compiled blend computes it: XLA contracts
+    the product and the sum into one fused multiply-add, and a blend that
+    lands on a half rounds the other way when rounded twice (the round to
+    pixels then moves the tracked centre by one). x holds integers below
+    2^24. In f32 the product and the sum are exact in f64, so one rounding
+    back to f32 is the fused one. In f64 the result is error-compensated:
+    the product's error (Dekker's split) and the sum's (TwoSum) are added
+    back, their own sum rounded before the last rounding, so it equals the
+    fused result on the grid that
+    tests/test_torch_ops.py::test_iir_track_rounds_as_the_compiled_jax_step
+    holds, not provably everywhere."""
+    if x.dtype == torch.float32:
+        return (x.double() * c.double() + y.double()).float()
+    p = x * c
+    (xh, xl), (ch, cl) = _split(x), _split(c)
+    p_err = ((xh * ch - p) + xh * cl + xl * ch) + xl * cl
+    s = p + y
+    b = s - p
+    s_err = (p - (s - b)) + (y - b)
+    return s + (s_err + p_err)
+
+
 def _iir_track(state: SweetspotState, beststripsize, beststripstart, n: int,
                lowpasscoeff: float, dt=torch.float64) -> SweetspotState:
     """IIR strip-centre tracking with wraparound + wrap-corrected velocity
-    (syncdetector.c:101-118)."""
+    (syncdetector.c:101-118); the blend rounded as one fused multiply-add
+    (_fused_blend)."""
     h2 = n // 2
     dxnl = torch.remainder(beststripstart + torch.div(beststripsize, 2, rounding_mode="floor"), n)
     rawdiff = dxnl - state.dx
@@ -113,7 +159,7 @@ def _iir_track(state: SweetspotState, beststripsize, beststripstart, n: int,
     c = torch.full((), lowpasscoeff, dtype=dt, device=dxnl.device)
     one = torch.full((), 1.0, dtype=dt, device=dxnl.device)
     dx1 = torch.remainder(
-        torch.round(dxnl.to(dt) * c + (one - c) * dx0.to(dt)).to(torch.int64), n
+        torch.round(_fused_blend(dxnl.to(dt), c, (one - c) * dx0.to(dt))).to(torch.int64), n
     ).to(torch.int32)
     rawvx = dx1 - lastx
     vx = torch.where(
@@ -129,15 +175,15 @@ def find_the_sweet_spot(state: SweetspotState, data: torch.Tensor, minsize: int,
     independent searches. Returns (state', blurred_profile, strip_start i32)."""
     n = data.shape[-1]
     data = gaussian_blur_circular(data)
-    totalsum = data.sum(dim=-1)
+    dt = data.dtype
+    totalsum = data.sum(dim=-1, dtype=torch.float64).to(dt)
     safe, valid = _candidate_sizes(state, n, minsize)
 
-    dt = data.dtype
     csum = _doubled_cumsum(data)
     lo = csum[..., :n]
     idx = safe.to(torch.int64)[..., None] + torch.arange(n, device=data.device)  # [..., 5, n]
     hi = torch.gather(csum[..., None, :].expand(idx.shape[:-1] + csum.shape[-1:]), -1, idx)
-    w = hi - lo[..., None, :]
+    w = (hi - lo[..., None, :]).to(dt)
     s = safe.to(dt)[..., None]
     m = ((totalsum[..., None, None] - w)
          / (torch.full((), float(n), dtype=dt, device=data.device) - s) - w / s)

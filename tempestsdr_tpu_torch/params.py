@@ -57,7 +57,9 @@ class Params:
     fast_sync: bool = False  # False (default) = the sweet-spot sync search
     # runs in f64 like the reference's double math (syncdetector.c:26-58) —
     # exact near-tie parity. True = f32 profiles end-to-end through the
-    # search (collapse stays unwidened, cumsum/metric/argmax in f32): the
+    # search (collapse stays unwidened, metric/argmax in f32; each window
+    # sum is rounded to f32 once from a running sum kept in f64, where the
+    # JAX package's f32 running sum lets near-ties differ by device): the
     # search is the dominant, emulated-f64-bound emit cost on TPU
     # (ROOFLINE.md round-4 update 4), so this trades exact near-tie
     # behaviour vs the reference for narrowband speed. Detected positions

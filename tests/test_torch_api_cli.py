@@ -23,6 +23,8 @@ import tempestsdr_tpu_torch as tpkg
 from tempestsdr_tpu_torch import cli as tcli
 from tempestsdr_tpu_torch.stream import session as tsession
 
+from test_torch_device_step import one_torch_thread  # noqa: F401 (autouse)
+
 LINES, TWIDTH, REFRESH, SR = 100, 200, 50.0, 1e6
 SPEC = f"{LINES} {TWIDTH} {REFRESH} {SR} 0.01"
 FRAME_ATOL, FRAME_RTOL = 1e-5, 1e-6  # tests/test_torch_stream.py

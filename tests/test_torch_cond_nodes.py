@@ -55,9 +55,12 @@ from test_torch_device_step import (  # noqa: F401 (one_torch_thread: autouse)
     EXACT,
     FRAME_RTOL,
     K1_PATH_ATOL,
+    SCENARIOS,
     _assert_same_outputs,
     _blocks,
     _configs,
+    interpret_pallas,
+    motionblur,
     one_torch_thread,
 )
 
@@ -90,29 +93,56 @@ class Paired:
         return states, got
 
 
+# the post-process orders and sync flags (tests/test_torch_device_step.py's
+# scenarios of those names): the taken-only form under each, on the step
+# forms that run them
+FLAG_SETS = ("autogain_after", "lowpass_first", "both", "fast_sync", "pll_off_plots_off",
+             "everything")
+
+
+def _flag_cases(*lead):
+    """The default Params at each lead (ids as before), then each flag set
+    at the first."""
+    return [pytest.param(*x, "default", id="-".join(map(str, x))) for x in lead] + [
+        pytest.param(*lead[0], name, id="-".join(map(str, lead[0] + (name,))))
+        for name in FLAG_SETS]
+
+
+def _branches(names, fields):
+    """The branches a run takes both sides of: no round without the plots."""
+    return {n for n in names if not (fields.get("autocorr_plots_off") and "round_body" in n)}
+
+
 def _np(x):
     return x.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("block", [8192, BIG])
-def test_single_step_taken_only_equals_select_and_jax(block):
+@pytest.mark.parametrize("block,name", _flag_cases((8192,), (BIG,)) + [
+    pytest.param(BIG, name, id=f"{BIG}-{name}") for name in ("both", "everything")])
+def test_single_step_taken_only_equals_select_and_jax(interpret_pallas, block, name):
     """The single-channel device step with the taken-only strategy against
     its select form (bit for bit) and the JAX step (integers, carries and
-    sync/PLL state exact, frames within K1_PATH_ATOL of their peak, plots
-    within AC_RTOL), over drops and sync shifts: every branch takes both
-    sides."""
+    sync/PLL state exact, frames within the scenario's tolerance of their
+    peak, plots within AC_RTOL), over drops and sync shifts: every branch
+    takes both sides. Default Params, then each flag set (the post-process
+    orders, fast_sync, the PLL and plots off, and all of them at once over
+    K3 with FIR 31)."""
+    fields, atol = SCENARIOS[name]
+    mb = motionblur(name)
     jcfg, tcfg = _configs(block)
     k_frames = tcfg.frames_per_block
     assert k_frames == (1 if block == 8192 else 3)
-    jstep = jax.jit(j_make_step(jcfg, JParams()))
-    paired = Paired(lambda: make_step(tcfg, Params(), device="cpu"), init_state(tcfg, device="cpu"))
-    js, ts = j_init_state(jcfg), init_state(tcfg, device="cpu")
+    fir = fields.get("fir_lowpass_taps", 0)
+    jstep = jax.jit(j_make_step(jcfg, JParams(**fields)))
+    paired = Paired(lambda: make_step(tcfg, Params(**fields), device="cpu"),
+                    init_state(tcfg, fir, device="cpu"))
+    js, ts = j_init_state(jcfg, fir), init_state(tcfg, fir, device="cpu")
     frames = rounds = 0
     for b, raw in enumerate(_blocks(16 if block == 8192 else 8, block, seed=3)):
         dropped, sync = EVENTS[block].get(b, (0, 0))
         js, jo = jstep(js, jnp.asarray(raw),
-                       JControls(jnp.int64(dropped), jnp.int32(sync), jnp.float32(0.3)))
-        ts, to = paired(ts, torch.from_numpy(raw), StepControls(dropped, sync, 0.3))
+                       JControls(jnp.int64(dropped), jnp.int32(sync), jnp.float32(mb)))
+        ts, to = paired(ts, torch.from_numpy(raw), StepControls(dropped, sync, mb))
         for f in EXACT:
             np.testing.assert_array_equal(_np(getattr(to, f)), np.asarray(getattr(jo, f)),
                                           err_msg=f"block {b} {f}")
@@ -122,7 +152,7 @@ def test_single_step_taken_only_equals_select_and_jax(block):
             assert [int(v) for v in getattr(ts, f)] == [int(v) for v in getattr(js, f)], (b, f)
         want = np.asarray(jo.frame)
         np.testing.assert_allclose(_np(to.frame), want, rtol=FRAME_RTOL,
-                                   atol=K1_PATH_ATOL * max(1.0, float(np.abs(want).max())),
+                                   atol=atol * max(1.0, float(np.abs(want).max())),
                                    err_msg=f"block {b}")
         if bool(jo.ac_plot_valid):
             for f in ("ac_frame_plot", "ac_line_plot"):
@@ -131,39 +161,49 @@ def test_single_step_taken_only_equals_select_and_jax(block):
                                            atol=AC_RTOL * np.abs(w).max())
             rounds += 1
         frames += int(np.sum(np.asarray(jo.frame_valid)))
-    assert frames >= 4 and rounds >= 1
-    assert paired.strategy.seen == {name: {False, True}
-                                    for name in ("round_body", "emit_fn", "shift")}
+    assert frames >= 4 and rounds >= (0 if fields.get("autocorr_plots_off") else 1)
+    assert paired.strategy.seen == {n: {False, True} for n in _branches(
+        ("round_body", "emit_fn", "shift"), fields)}
 
 
-@pytest.mark.parametrize("cond_mode,block", [("unrolled", 8192), ("unrolled", BIG),
-                                             ("batched", 8192), ("batched", BIG)])
-def test_channel_steps_taken_only_equal_select_and_jax(cond_mode, block):
+@pytest.mark.parametrize("cond_mode,block,name",
+                         _flag_cases(("unrolled", 8192), ("unrolled", BIG), ("batched", 8192),
+                                     ("batched", BIG))
+                         + [pytest.param("batched", 8192, name, id=f"batched-8192-{name}")
+                            for name in FLAG_SETS])
+def test_channel_steps_taken_only_equal_select_and_jax(interpret_pallas, cond_mode, block, name):
     """ChannelsStep (C = 3) with the taken-only strategy against its select
     form, bit for bit, and the JAX step (integers and carries exact, frames
-    within tests/test_torch_channels.py's tolerances), a drop on channel 1
-    desynchronising its ring and frame cadence: unrolled (per channel, as
-    the JAX hybrid step's real conds) and batched (gated on any(), the JAX
-    gated forms: the hybrid step at K == 1, make_multi_step at K == 3)."""
+    within tests/test_torch_channels.py's FRAME_ATOL, the K3 path's within
+    its own), a drop on channel 1 desynchronising its ring and frame
+    cadence: unrolled (per channel, as the JAX hybrid step's real conds) and
+    batched (gated on any(), the JAX gated forms: the hybrid step at K == 1,
+    make_multi_step at K == 3); default Params, then each flag set at K ==
+    1 in both modes."""
+    fields, atol = SCENARIOS[name]
     jcfg, tcfg = tch._configs(block)
     C = tch.C
+    jp, fir = JParams(**fields), fields.get("fir_lowpass_taps", 0)
     if block == 8192:
-        jstep = jpipe.make_channels_step_hybrid(jcfg, JParams(), C, cond_mode=cond_mode)
+        jstep = jpipe.make_channels_step_hybrid(jcfg, jp, C, cond_mode=cond_mode)
     elif cond_mode == "unrolled":
-        jstep = jpipe.make_channels_step_hybrid(jcfg, JParams(), C)
+        jstep = jpipe.make_channels_step_hybrid(jcfg, jp, C)
     else:
-        jstep = jpipe.make_multi_step(jcfg, JParams())
-    paired = Paired(lambda: tpipe.ChannelsStep(tcfg, Params(), C, "cpu", cond_mode=cond_mode),
-                    stack_states(tcfg, C, device="cpu"))
+        jstep = jpipe.make_multi_step(jcfg, jp)
+    paired = Paired(lambda: tpipe.ChannelsStep(tcfg, Params(**fields), C, "cpu",
+                                               cond_mode=cond_mode),
+                    stack_states(tcfg, C, fir, device="cpu"))
     n_blocks = 14 if block == 8192 else 6
-    seen = tch.compare(jax.jit(jstep), paired, j_stack_states(jcfg, C),
-                       stack_states(tcfg, C, device="cpu"), tch._blocks(n_blocks, block, 45),
-                       drop_at=2, motionblur=0.3)
-    assert seen["frames"] >= 2 * C and seen["rounds"] > 0
+    seen = tch.compare(jax.jit(jstep), paired, j_stack_states(jcfg, C, fir),
+                       stack_states(tcfg, C, fir, device="cpu"), tch._blocks(n_blocks, block, 45),
+                       drop_at=2, motionblur=motionblur(name),
+                       frame_atol=tch.FRAME_ATOL if atol == K1_PATH_ATOL else atol)
+    assert seen["frames"] >= 2 * C and seen["rounds"] >= (0 if fields.get("autocorr_plots_off")
+                                                          else 1)
     names = ("round_body", "emit_fn", "shift") if cond_mode == "unrolled" else (
         "any:round_body", "any:emit_fn", "shift")
     assert {k: v for k, v in paired.strategy.seen.items() if k != "shift"} == {
-        name: {False, True} for name in names if name != "shift"}
+        n: {False, True} for n in _branches(names, fields) if n != "shift"}
     assert paired.strategy.seen["shift"] == {False}  # no channel shifts its sync
 
 

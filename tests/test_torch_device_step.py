@@ -72,8 +72,29 @@ SCENARIOS = {  # name -> (Params fields, frame tolerance)
     "fused": (dict(resampler="fused"), K1_PATH_ATOL),
     "pallas": (dict(resampler="pallas"), K3_PATH_ATOL),
     "pallas_windows": (dict(resampler="pallas_windows"), K3_PATH_ATOL),
+    # the post-process orders and sync flags of the reference's PARAM
+    # registry (and fast_sync), alone and all at once
+    "autogain_after": (dict(autogain_after_proc=True), K1_PATH_ATOL),
+    "lowpass_first": (dict(lowpass_before_sync=True), K1_PATH_ATOL),
+    "both": (dict(autogain_after_proc=True, lowpass_before_sync=True), K1_PATH_ATOL),
+    "fast_sync": (dict(fast_sync=True), K1_PATH_ATOL),
+    "pll_off_plots_off": (dict(framerate_pll=False, autocorr_plots_off=True), K1_PATH_ATOL),
+    "everything": (dict(resampler="pallas", fir_lowpass_taps=31, lowpass_before_sync=True,
+                        autogain_after_proc=True, autoshift=True, fast_sync=True), K3_PATH_ATOL),
 }
-K4_SCENARIOS = ("default", "autoshift", "fused", "pallas")
+K4_SCENARIOS = ("default", "autoshift", "fused", "pallas", "both", "everything")
+# the motion blur of every block: 0.5 where lowpass comes first, so the IIR
+# ahead of the collapse weighs the screen and the frame alike
+MOTIONBLUR = {"lowpass_first": 0.5, "both": 0.5, "everything": 0.5}
+
+
+def motionblur(name):
+    return MOTIONBLUR.get(name, 0.3)
+
+
+def rounds_expected(fields):
+    """At least one autocorrelation round, unless the plots are off."""
+    return 0 if fields.get("autocorr_plots_off") else 1
 
 
 @pytest.fixture(autouse=True)
@@ -144,6 +165,7 @@ def hold_against_jax_and_runner(k, name):
     jcfg, tcfg = _configs(block)
     assert tcfg.frames_per_block == k
     fir = fields.get("fir_lowpass_taps", 0)
+    mb = motionblur(name)
     jstep = jax.jit(j_make_step(jcfg, JParams(**fields)))
     dstep = make_step(tcfg, Params(**fields), device="cpu")
     runner = BlockRunner(tcfg, Params(**fields), 1, "cpu")
@@ -153,8 +175,8 @@ def hold_against_jax_and_runner(k, name):
     for b, raw in enumerate(_blocks(n_blocks, block)):
         dropped, sync = events.get(b, (0, 0))
         js, jo = jstep(js, jnp.asarray(raw),
-                       JControls(jnp.int64(dropped), jnp.int32(sync), jnp.float32(0.3)))
-        ctl = StepControls(dropped, sync, 0.3)
+                       JControls(jnp.int64(dropped), jnp.int32(sync), jnp.float32(mb)))
+        ctl = StepControls(dropped, sync, mb)
         ds, do = dstep(ds, torch.from_numpy(raw), ctl)
         rs, ro, _ = runner.run(rs, torch.from_numpy(raw)[None], [list(ctl)])
         _assert_same_outputs(do, StepOutputs(*(x[0] for x in ro)), b)
@@ -179,7 +201,7 @@ def hold_against_jax_and_runner(k, name):
             seen["rounds"] += 1
         seen["frames"] += int(np.sum(np.asarray(jo.frame_valid)))
         seen["skipped"] += int(np.asarray(jo.n_pixels) == 0)
-    assert seen["frames"] >= (4 if k == 1 else 10) and seen["rounds"] >= 1
+    assert seen["frames"] >= (4 if k == 1 else 10) and seen["rounds"] >= rounds_expected(fields)
     if k == 1:
         assert seen["skipped"] == 3  # the drop's block and the two past it
 

@@ -6,6 +6,7 @@ check."""
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 from tempestsdr_tpu.config import FRAC_BITS
@@ -14,6 +15,7 @@ from tempestsdr_tpu.ops.resample import resample_counts as j_resample_counts
 from tempestsdr_tpu.ops.resample import plan_strided as j_plan_strided
 from tempestsdr_tpu.pallas.strided_kernel import box_resample_strided_pallas
 from tempestsdr_tpu.ops.sync import PLLState as JPLL, SweetspotState as JSS
+from tempestsdr_tpu.ops.sync import _iir_track as j_iir
 from tempestsdr_tpu.ops.sync import framerate_pll as j_pll
 
 from tempestsdr_tpu_torch import ops as tops
@@ -210,6 +212,100 @@ def test_sweet_spot_exact(dtype):
         fit_j = jops.find_best_fit(jnp.asarray(p), jnp.sum(jnp.asarray(p)), 40)
         fit_t = tops.find_best_fit(torch.from_numpy(p), torch.from_numpy(p).sum(), 40)
         assert int(fit_j[1]) == int(fit_t[1])
+
+
+@pytest.mark.parametrize("dtype,n,coeff", [(np.float64, 3397, 0.9), (np.float64, 628, 0.1),
+                                           (np.float32, 3397, 0.9), (np.float32, 628, 0.1)])
+def test_iir_track_rounds_as_the_compiled_jax_step(dtype, n, coeff):
+    """The strip-centre IIR over every tracked centre and detected centre
+    within a quarter of the profile of each other (a leading axis of
+    states), against the JAX package's blend as its step compiles it (one
+    fused multiply-add): dx and vx exact, the blends that land on a half
+    included, at both axes' coefficients, in f64 and in fast_sync's f32."""
+    dx0, d = np.meshgrid(np.arange(0, n, 7), np.arange(-n // 4, n // 4))
+    start = ((dx0 + d) % n).astype(np.int32).ravel()
+    dx0 = dx0.astype(np.int32).ravel()
+    size = np.full_like(dx0, 0)
+    want = jax.jit(lambda st, a, b: j_iir(st, a, b, n, coeff, jnp.dtype(dtype)))(
+        JSS(jnp.asarray(size), jnp.asarray(dx0), jnp.asarray(size)), jnp.asarray(size),
+        jnp.asarray(start))
+    t = {np.float64: torch.float64, np.float32: torch.float32}[dtype]
+    got = tops.sync._iir_track(
+        TSS(torch.from_numpy(size), torch.from_numpy(dx0), torch.from_numpy(size)),
+        torch.from_numpy(size), torch.from_numpy(start), n, coeff, dt=t)
+    # the grid holds blends on a half that two roundings resolve the other way
+    separate = np.round(start.astype(dtype) * dtype(coeff)
+                        + (dtype(1) - dtype(coeff)) * dx0.astype(dtype)) % n
+    assert (separate != np.asarray(want.dx)).sum() > 0
+    np.testing.assert_array_equal(_np(got.dx), np.asarray(want.dx))
+    np.testing.assert_array_equal(_np(got.vx), np.asarray(want.vx))
+
+
+def test_fast_sync_window_sums_round_once():
+    """fast_sync's window sums (differences of the doubled running sum) and
+    total are each rounded to f32 once, from sums accumulated in f64: equal
+    to the f32 rounding of the exact sums at the flagship width (3397
+    columns of ~400), where an f32 running sum would be off by up to 0.25.
+    The window search's f64 form takes the same running sum."""
+    x = (np.random.default_rng(6).random(3397) * 400 + 200).astype(np.float32)
+    csum = tops.sync._doubled_cumsum(torch.from_numpy(x))
+    exact = np.concatenate([[0.0], np.cumsum(np.concatenate([x, x]).astype(np.float64))])
+    assert csum.dtype == torch.float64
+    for s in (169, 338, 1352):
+        got = (csum[s:s + 3397] - csum[:3397]).to(torch.float32)
+        want = (exact[s:s + 3397] - exact[:3397]).astype(np.float32)
+        np.testing.assert_array_equal(_np(got), want)
+    f32 = np.cumsum(np.concatenate([x, x]))  # the f32 running sum: off by more
+    assert np.abs(f32 - exact[1:]).max() > 0.05
+
+
+def _quiet_strip_profile(n, start, width, seed, quiet):
+    """A raster's column profile at a video level of ~400 with a blanking
+    strip at 50 whose noise is `quiet`: the quieter the strip, the closer
+    the windows sliding inside it come to a tie."""
+    rng = np.random.default_rng(seed)
+    x = np.arange(n)
+    p = 400.0 + 30.0 * np.sin(0.37 * x + seed) + 20.0 * rng.random(n)
+    inside = (x - start) % n < width
+    p[inside] = 50.0 + quiet * rng.random(int(inside.sum()))
+    return p.astype(np.float32)
+
+
+@pytest.mark.parametrize("quiet", [20.0, 1.0, 0.01])
+def test_fast_sync_at_flagship_width_against_jax(quiet):
+    """fast_sync at 3397 columns against the JAX package's f32 search and
+    the f64 search (the default), one search from a cold and from a tracked
+    state per profile. The port departs from the JAX fast_sync on purpose:
+    its window sums are rounded once from an f64 running sum, where the
+    JAX form differences an f32 running sum whose rounding (up to 0.25
+    here) exceeds the gap between windows inside a quiet blanking strip, so
+    that its winner depends on the order of the additions. Held: the f64
+    searches agree exactly; with a strip as noisy as the video all three
+    agree; the port's fast_sync departs from the f64 search no more often
+    than the JAX fast_sync does. The counts of disagreement are printed."""
+    n, key = 3397, (lambda r: tuple(int(v) for v in r[0]) + (int(r[2]),))
+    jsearch = jax.jit(jops.find_the_sweet_spot, static_argnums=(2, 3))
+    differ = {"jax f32 vs port f32": 0, "jax f32 vs f64": 0, "port f32 vs f64": 0}
+    cases = 0
+    for seed in range(20):
+        p = _quiet_strip_profile(n, (seed * 97) % n, 338 + seed % 7, seed, quiet)
+        for st in [(0, 0, 0), (338, (seed * 97 + 169) % n, 0)]:
+            js = JSS(*(jnp.int32(v) for v in st))
+            ts = TSS(*(torch.tensor(v, dtype=torch.int32) for v in st))
+            j32 = key(jsearch(js, jnp.asarray(p), 20, 0.9))
+            t32 = key(tops.find_the_sweet_spot(ts, torch.from_numpy(p), 20, 0.9))
+            j64 = key(jsearch(js, jnp.asarray(p.astype(np.float64)), 20, 0.9))
+            t64 = key(tops.find_the_sweet_spot(ts, torch.from_numpy(p.astype(np.float64)),
+                                               20, 0.9))
+            assert t64 == j64, (seed, st)
+            differ["jax f32 vs port f32"] += j32 != t32
+            differ["jax f32 vs f64"] += j32 != j64
+            differ["port f32 vs f64"] += t32 != j64
+            cases += 1
+    print(f"quiet {quiet}: {cases} searches, disagreements {differ}")
+    if quiet >= 20.0:
+        assert set(differ.values()) == {0}, differ
+    assert differ["port f32 vs f64"] <= differ["jax f32 vs f64"], differ
 
 
 @pytest.mark.parametrize("enabled", [True, False])

@@ -315,6 +315,11 @@ STAGED_CASES = {  # name -> (Params, T, grid rows, autocorr)
     "nearest": (Params(framerate_pll=False, nearest_neighbour=True), WORLD, 1, True),
     "nearest-no-autocorr": (Params(framerate_pll=False, nearest_neighbour=True), 4, 1, False),
     "grid 2x4": (Params(framerate_pll=False), WORLD // 2, 2, True),
+    # the post-process orders with autoshift (the card's "time-sharded
+    # orders" run), and fast_sync's f32 search
+    "orders": (Params(framerate_pll=False, lowpass_before_sync=True, autogain_after_proc=True,
+                      autoshift=True), WORLD, 1, True),
+    "fast_sync": (Params(framerate_pll=False, fast_sync=True), 4, 1, True),
 }
 STAGED_EVENTS = {3: (0, 777), 9: (1000, 0), 11: (0, -1234)}  # block -> (dropped, sync shift)
 
@@ -682,7 +687,8 @@ def test_sharded_steps_read_nothing_to_the_host(pool):
 @pytest.mark.parametrize("name", list(STAGED_CASES))
 def test_staged_steps_equal_the_unsplit_step(pool, name):
     """The time-sharded step cut at its collectives (default, FIR 31,
-    nearest-neighbour with and without the ring's gather) and the grid
+    nearest-neighbour with and without the ring's gather, the post-process
+    orders with autoshift, fast_sync) and the grid
     (2 x 4) on gloo CPU ranks, over blocks with a drop, two sync shifts,
     rounds and frames: the eager staged step, a StagedRunner replaying its
     stages through EmulatedStages (static tensors written by the exchanges,

@@ -29,6 +29,8 @@ from tempestsdr_tpu_torch.sources.synthetic import SyntheticSource
 from tempestsdr_tpu_torch.stream import session as tsession
 from tempestsdr_tpu_torch.utils import profiling as tprofiling
 
+from test_torch_device_step import one_torch_thread  # noqa: F401 (autouse)
+
 LINES, TWIDTH, REFRESH, SR, BLOCK = 100, 200, 50.0, 1e6, 8192
 FRAME_ATOL, FRAME_RTOL = 1e-5, 1e-6  # tests/test_torch_stream.py
 AC_RTOL = 1e-5
@@ -191,6 +193,11 @@ def test_batched_controls_from_callbacks_match_jax():
     dict(debug_markers=True),
     dict(lowpass_before_sync=True),
     dict(fir_lowpass_taps=31),
+    dict(autoshift=True),
+    dict(autogain_after_proc=True),
+    dict(fast_sync=True),
+    dict(autocorr_plots_off=True),
+    dict(nearest_neighbour=True),
 ], ids=lambda d: ",".join(d))
 def test_set_params_live_matches_jax(flip):
     """set_params flipped from on_frame after frame 6: the step is rebuilt at

@@ -37,6 +37,8 @@ from tempestsdr_tpu_torch.stream.state import (
 from tempestsdr_tpu_torch.sources.rawfile import RawFileSource
 from tempestsdr_tpu_torch.sources.synthetic import SyntheticSource
 
+from test_torch_device_step import one_torch_thread  # noqa: F401 (autouse)
+
 LINES, TWIDTH, REFRESH, SR = 100, 200, 50.0, 1e6
 # XLA fuses the normalize / motion-blur elementwise pass and may rewrite its
 # division and multiply-adds; torch runs them as separate correctly rounded
