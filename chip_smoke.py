@@ -131,6 +131,30 @@
    cycle); cli.main under --autoshift --fast-sync --no-pll --motionblur
    0.5 against a hand-built Session; the viewer's s, a, f and o keys
    typed over a pty mid-run;
+9c. the live path (phase 12): sources that push on the radio's own clock
+   into the native ring, which drops whole pushes when the receiver falls
+   behind. The repo's replay plugin (native/replay_plugin.c, a fixture to
+   the reference's binary plugin ABI, built with gcc) through cplugin and
+   Session at 64 MS/s: drop-free (block=1) in uint8, int16 and float32
+   against rawfile over the same capture (frames within 2e-5, carries
+   equal); at the radio's rate (pace=1) with the host split; with gaps the
+   plugin reports at slots 1, 2 and 3 of a batch of 4; overloaded (pace=0,
+   a 20 ms frame handler) at batch 1 and 4, where drops must show; a pace
+   sweep (each producer's own rate; the highest pace up to which every
+   pace ran with no drop and its producer at its pace, beside pre-made
+   float32 blocks); config 5 over 8 plugins through MultiSession at pace 1
+   (the first float32 ChannelRunner: its nodes and memory) and a sweep of
+   paces, then overloaded (pace 0, drops must show) under the profiler in
+   a process of its own (`chip_smoke.py --live-channels-overload`: K1
+   once per channel a block); simlive's producer rate and 8 simlive
+   channels; TSDR over cplugin with its controls while it streams, and
+   cli.main --source cplugin against --source rawfile. Every live run but
+   the sweeps' is recorded by a TeeSource and held against the CPU step
+   over the recording (integers exact, frames within 1e-4), every gap of a
+   replay plugin's recording found in its capture (gaps_in), and every
+   live run has a wall-clock limit of its own. `chip_smoke.py
+   --profiled-fault` is the test of the open fault of ROADMAP Queue 3:
+   this run, then config 5's float32 graph replayed under the profiler;
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -144,6 +168,7 @@ import io
 import json
 import os
 import re
+import shutil
 import socket
 import struct
 import subprocess
@@ -185,6 +210,7 @@ from tempestsdr_tpu_torch.kernels.strided_resample import (  # noqa: E402
     launch_noop,
     range_launch,
 )
+from tempestsdr_tpu_torch.ops.demod import normalize_iq  # noqa: E402
 from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
     box_resample_block_chunked,
     box_resample_range_strided,
@@ -203,6 +229,7 @@ from tempestsdr_tpu_torch.parallel.channels import ChannelMeshStep  # noqa: E402
 from tempestsdr_tpu_torch.parallel.launch import RankPool  # noqa: E402
 from tempestsdr_tpu_torch.sources.base import Source, SourceBlock, load_source  # noqa: E402
 from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq  # noqa: E402
+from tempestsdr_tpu_torch.sources.tee import RecordedSource, TeeSource, gaps_in  # noqa: E402
 from tempestsdr_tpu_torch.stream import MultiSession  # noqa: E402
 from tempestsdr_tpu_torch.stream.pipeline import (  # noqa: E402
     ChannelsStep,
@@ -226,7 +253,13 @@ from tempestsdr_tpu_torch.stream.graph import (  # noqa: E402
     Stage,
     sync_debug,
 )
-from tempestsdr_tpu_torch.stream.state import StepOutputs, init_state, state_leaves  # noqa: E402
+from tempestsdr_tpu_torch.events import VALUE_ID  # noqa: E402
+from tempestsdr_tpu_torch.stream.state import (  # noqa: E402
+    StepOutputs,
+    init_state,
+    reset_autocorr,
+    state_leaves,
+)
 from tempestsdr_tpu_torch.utils.profiling import (  # noqa: E402
     measure_dispatch_floor,
     measure_replay_floor,
@@ -1324,7 +1357,7 @@ def multisession_held(cfg, srcs, n_blocks=4, params=Params(), per_body=None):
     if per_body is None:  # a body's kernels, unless the caller counted them
         per_body = body_kernels(eager, stack_states(cfg, n_ch, device=DEV),
                                 torch.from_numpy(blocks[0]).to(DEV))
-    want, flags = eager_channel_frames(eager, blocks)
+    want, flags, _ = eager_channel_frames(eager, blocks)
     got = [[] for _ in range(n_ch)]
     counted = MultiSession(cfg, params, srcs, on_frame=lambda c, f: got[c].append(np.array(f)),
                            device=DEV)
@@ -1409,7 +1442,7 @@ def profile_channels(cfg, srcs, n_blocks=4):
             ms.run(max_blocks=n_blocks)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    want, _ = eager_channel_frames(make_channels_step_hybrid(cfg, Params(), len(srcs), device=DEV),
+    want, *_ = eager_channel_frames(make_channels_step_hybrid(cfg, Params(), len(srcs), device=DEV),
                                    channel_blocks(srcs)[:n_blocks])
     for c in range(len(srcs)):
         held_frames(got[c], want[c], f"MultiSession under profile_trace, channel {c}")
@@ -1426,13 +1459,16 @@ def profile_channels(cfg, srcs, n_blocks=4):
 
 def simlive_session(cfg, n_blocks=8):
     """A simlive source (a producer thread at real time into the native
-    ring) through Session on the card: frames, and its drops counted."""
+    ring) through Session on the card, recorded by a TeeSource: frames, its
+    drops counted, and the frames and carries held against the CPU step
+    over the recording (held_live)."""
     src = load_source("simlive", f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} "
                                  f"{cfg.samplerate} 0.02 pace=1 ring=8")
+    tee = TeeSource(src)
     frames = []
-    sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append), device=DEV)
+    sess = Session(cfg, Params(), tee, SessionCallbacks(on_frame=frames.append), device=DEV)
     warm_compile_step(cfg, Params(), raw_dtype=src.block_dtype(), device=DEV)
-    with card_counts() as launches:
+    with live_limit("simlive Session", sess.stop), card_counts() as launches:
         t0 = time.perf_counter()
         sess.run(max_blocks=n_blocks)
         torch.cuda.synchronize()
@@ -1442,8 +1478,10 @@ def simlive_session(cfg, n_blocks=8):
                           for f in frames)
     chunk = max(int(0.06 * cfg.samplerate), 1024)
     assert sess.samples_dropped_total % chunk == 0, sess.samples_dropped_total
+    err = held_live(cfg, dict(frames=frames, sess=sess, tee=tee), "simlive Session")
     return dict(blocks=n_blocks, frames=len(frames), samples_dropped=sess.samples_dropped_total,
-                per_block_ms=dt / n_blocks * 1e3)
+                per_block_ms=dt / n_blocks * 1e3, max_abs_err_vs_cpu_replay=err,
+                k1_launches=launches["box_resample_strided_cuda"])
 
 
 def channels_phase(smi, cfg=CH5, n_ch=N_CH, n_blocks=12):
@@ -1549,9 +1587,10 @@ def channels_phase(smi, cfg=CH5, n_ch=N_CH, n_blocks=12):
     print("channels split " + json.dumps(channels_split(cfg, srcs)))
     print("profile(8x16MS/s MultiSession, under the profiler) "
           + json.dumps(profile_channels(cfg, srcs)))
-    print("simlive Session (8MS/s, native ring) "
-          + json.dumps(simlive_session(GEOMETRIES["8MS/s"])))
-    return {"K1": row["k1_launches_in_4_blocks"], "K2": k2["fused_demod_resample_cuda"]}
+    simlive = simlive_session(GEOMETRIES["8MS/s"])
+    print("simlive Session (8MS/s, native ring) " + json.dumps(simlive))
+    return {"K1": row["k1_launches_in_4_blocks"], "K2": k2["fused_demod_resample_cuda"],
+            "simlive": simlive["k1_launches"]}
 
 
 # ---- phase 10: the sharded receiver over torch.distributed ----------------
@@ -2147,19 +2186,21 @@ def eager_frames(cfg, params, blocks):
     return frames
 
 
-def eager_channel_frames(step, blocks):
+def eager_channel_frames(step, blocks, drops=None):
     """Per channel, the frames the eager channel step emits over the blocks
-    ([C, 2n] each) with no control, and its outputs stacked over the
-    blocks."""
+    ([C, 2n] each) on its device, each block with its channels' drops
+    (drops[b], C counts; none without), its outputs stacked over the blocks,
+    and its final state."""
     n_ch = step.n_channels
-    state = stack_states(step.config, n_ch, step.params.fir_lowpass_taps, device=DEV)
+    state = stack_states(step.config, n_ch, step.params.fir_lowpass_taps, device=step.device)
     per, outs = [[] for _ in range(n_ch)], []
-    for raws in blocks:
-        state, out = step(state, torch.as_tensor(np.asarray(raws)).to(DEV), StepControls())
+    for b, raws in enumerate(blocks):
+        controls = StepControls() if drops is None else StepControls(list(drops[b]), 0, 0.0)
+        state, out = step(state, torch.as_tensor(np.asarray(raws)).to(step.device), controls)
         for (c,), f in _valid_frames(out, (n_ch,)):
             per[c].append(f)
         outs.append(out)
-    return per, StepOutputs(*(torch.stack(list(v)) for v in zip(*outs)))
+    return per, StepOutputs(*(torch.stack(list(v)) for v in zip(*outs))), state
 
 
 def held_frames(got, want, what):
@@ -2690,14 +2731,16 @@ def source_session(cfg, params, source, count=False, motionblur=0.0, batch=1, **
     return frames, sess, dt, launches
 
 
-def cpu_step(cfg, params, blocks):
+def cpu_step(cfg, params, blocks, drops=None):
     """The device step on the CPU (the kernels' plain versions) over the
-    blocks, with no control: its frames and its final state."""
+    blocks, each with its drop (drops[b]; none without): its frames and its
+    final state."""
     step = make_step(cfg, params, device="cpu")
     state = init_state(cfg, params.fir_lowpass_taps, device="cpu")
     frames = []
-    for raw in blocks:
-        state, out = step(state, torch.from_numpy(raw), StepControls())
+    for b, raw in enumerate(blocks):
+        controls = StepControls() if drops is None else StepControls(int(drops[b]), 0, 0.0)
+        state, out = step(state, torch.from_numpy(raw), controls)
         frames += [f for _, f in _valid_frames(out)]
     return frames, state
 
@@ -3656,6 +3699,664 @@ def flags_front_doors(smi):
         "k1_launches"], f"tui toggles 8MS/s, {tui['blocks']} blocks": tui["k1_launches"]}
 
 
+# ---- phase 12: the live path ----------------------------------------------
+# Sources that push on the radio's own clock into the native ring, which
+# drops whole pushes when the receiver falls behind: the reference's binary
+# plugin ABI through the repo's replay plugin (native/replay_plugin.c, built
+# with gcc; a fixture that stands in for a user's compiled plugin) and
+# simlive, through Session, MultiSession, TSDR and cli.main. Every live run
+# but the pace sweeps' is recorded by a TeeSource and held against the CPU
+# step over that recording (held_live: integers and carries exact, frames
+# within GRAPH_TOL), never against a second live run; the gaps of a replay
+# plugin's recording are found in its capture (gaps_in: each drop whole
+# pushes, reported once, on the first block of data after it). The sweeps
+# are not recorded: they give each pace's drop share and ms a block, and
+# the rate each producer reached (producer_rate), so that a pace its
+# producer fell short of counts as the producer's, never the receiver's.
+
+LIVE_BLOCKS = 24
+LIVE_PUSH = 512 * 1024 // 2  # IQ samples a push: the plugin's default, the reference's 512 x 1024 floats
+LIVE_TAIL = 1000  # samples past the last whole block: no gap is a whole loop of the capture
+LIVE_LIMIT_S = 120  # each live run's own wall-clock limit
+LIVE_PACES = (0.5, 0.8, 1.0, 1.25, 1.5, 2.0)
+SWEEP_SIGNAL_S = 2.0  # of signal a run of the pace sweep (cut from 3 s for the script's time)
+CH5_PACES = (0.5, 0.8, 1.25)  # config 5's sweep, beside its held run at pace 1
+CH5_SWEEP_BLOCKS = 12
+OVERLOAD_FRAME_S = 0.02  # the overload runs' frame handler (a display or writer slower than
+# the radio): an unthrottled plugin's GIL-bound callbacks alone need not outrun the receiver
+PLUGIN_TOL = 2e-5  # cplugin against rawfile over one capture (tests/test_cplugin.py:192-193)
+LIVE_FORMATS = (("uint8", np.uint8, "uint8"), ("int16", np.int16, "int16"),
+                ("float32", np.float32, "float"))  # the plugin's name, dtype, rawfile's name
+INJECTED = ((5, 1, 123457), (10, 2, 1000000), (15, 0, 77777))  # block, its push after the
+# gap, samples skipped: slots 1, 2 and 3 of a batch of 4
+PRODUCER_REACHED = 0.95  # a producer reached its pace when it pushed at least this share of
+# pace x rate between its own first and last push (a paced plugin's pushes keep a deadline each)
+
+
+def plugin_stats(src):
+    """The replay plugin's own counters (native.replay_plugin_stats)."""
+    return native.replay_plugin_stats(src._dll)
+
+
+def producer_rate(srcs, cfg, pace):
+    """The rate each replay plugin of `srcs` pushed at, in MS/s, between
+    its own first and last push (a plugin starts when its stream is first
+    read, so a run's wall time is no measure of it), and whether every one
+    reached PRODUCER_REACHED of pace x the config's rate (pace 0,
+    unthrottled, has no rate to reach)."""
+    msps = []
+    for s in srcs:
+        st = plugin_stats(s)
+        span = st["last_push_s"] - st["first_push_s"]
+        assert st["pushes"] >= 2 and span > 0, st
+        msps.append(st["samples_pushed"] * (st["pushes"] - 1) / st["pushes"] / span / 1e6)
+    want = pace * cfg.samplerate / 1e6
+    return dict(producer_msps=msps if len(msps) > 1 else msps[0],
+                producer_reached_pace=bool(pace) and min(msps) >= PRODUCER_REACHED * want)
+
+
+def highest_clean_pace(runs):
+    """The live path's real-time factor: the highest pace of a sweep (rows
+    with pace, drop_share and producer_reached_pace) up to which every pace
+    ran with no drop and with its producer at its pace; None when the
+    lowest did not."""
+    best = None
+    for r in sorted(runs, key=lambda r: r["pace"]):
+        if r["drop_share"] or not r["producer_reached_pace"]:
+            break
+        best = r["pace"]
+    return best
+
+
+@contextlib.contextmanager
+def live_limit(what, *stop, limit=LIVE_LIMIT_S):
+    """The enclosed live run's own wall-clock limit: when it is reached,
+    every `stop` is called (a session's or a source's; a readasync that
+    ignored stop would hang the script) and the run fails."""
+    hit = []
+
+    def fire():
+        hit.append(limit)
+        for s in stop:
+            s()
+
+    timer = threading.Timer(limit, fire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+    assert not hit, f"{what}: the live run reached its limit of {limit} s"
+
+
+def live_capture(cfg, dtype, n_samples, path, twidth=None):
+    """A capture of the synthetic emanation (as emanation makes it) of
+    n_samples at cfg's rate, written to path; returns the float32 values
+    the replay plugin delivers for it (normalize_iq's)."""
+    raster = render_test_pattern(cfg.height, twidth or cfg.width // 2)
+    iq = synth_iq(raster * 0.6, samplerate=cfg.samplerate, pixelclock=raster.size * cfg.refreshrate,
+                  n_samples=n_samples, dc=0.3, noise=0.02, dtype=dtype)
+    iq.tofile(path)
+    return normalize_iq(torch.from_numpy(iq)).numpy()
+
+
+def plugin_source(so, path, cfg, fmt="uint8", loader="", **opts):
+    """load_source("cplugin") over the replay plugin `so` replaying path."""
+    extra = "".join(f" {k}={v}" for k, v in opts.items())
+    return load_source("cplugin", f"{so} {loader} -- {path} {int(cfg.samplerate)} {fmt}{extra}")
+
+
+def cpu_channel_replay(cfg, recordings):
+    """The channel step on the CPU over one recording per channel, each
+    block with its channel's drop: per channel its frames, and the final
+    stacked state."""
+    step = make_channels_step_hybrid(cfg, Params(), len(recordings), device="cpu")
+    blocks = [np.stack([np.asarray(b.samples) for b in blks]) for blks in zip(*recordings)]
+    drops = [[b.dropped for b in blks] for blks in zip(*recordings)]
+    per, _, state = eager_channel_frames(step, blocks, drops)
+    return per, state
+
+
+def held_live(cfg, run, what, capture=None):
+    """A live run ({frames, sess, tee}) against the CPU step over its
+    recording: the drops the session counted those recorded, integers and
+    carries exact, frames within GRAPH_TOL; with `capture` (the values a
+    replay plugin delivers), every gap where gaps_in finds it. Returns the
+    worst frame difference."""
+    rec = run["tee"].blocks
+    assert run["sess"].samples_dropped_total == run["tee"].samples_dropped, what
+    if capture is not None:
+        gaps_in(rec, capture, LIVE_PUSH)
+    want, want_state = cpu_step(cfg, Params(), [np.asarray(b.samples) for b in rec],
+                                [b.dropped for b in rec])
+    return held_to_cpu_step(run["frames"], run["sess"].state, want, want_state, what)
+
+
+def live_session(cfg, source, batch=1, n_blocks=LIVE_BLOCKS, count=False, split=False,
+                 record=True, frame_s=0.0, what="live Session"):
+    """Session(batch_blocks=batch).run over a live source on the card (its
+    float32 graph warmed first), recorded by a TeeSource unless `record` is
+    False, bounded by live_limit, under the profiler with `count`, with the
+    host clock read around the runner's run (upload + replay), the packed
+    fetch and the downloads with `split`, a frame handler that takes
+    frame_s seconds. Returns a dict of the run."""
+    warm_compile_step(cfg, Params(), batch_blocks=batch, raw_dtype=np.float32, device=DEV)
+    tee = TeeSource(source) if record else None
+    frames, errors = [], []
+
+    def on_frame(frame):
+        frames.append(frame)
+        time.sleep(frame_s)
+
+    sess = Session(cfg, Params(), tee or source,
+                   SessionCallbacks(on_frame=on_frame, on_exception=errors.append),
+                   batch_blocks=batch, device=DEV)
+    spent = {}
+    undo = [_timed(BlockRunner, "run", spent), _timed(torch.Tensor, "tolist", spent),
+            _timed(session_mod, "_download", spent)] if split else []
+    try:
+        torch.cuda.synchronize()
+        with live_limit(what, sess.stop), \
+                (card_counts() if count else contextlib.nullcontext(None)) as launches:
+            t0 = time.perf_counter()
+            sess.run(max_blocks=n_blocks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for u in undo[::-1]:
+            u()
+    assert not errors, (what, errors)
+    drops = [b.dropped for b in tee.blocks] if tee else None
+    assert tee is None or len(drops) == n_blocks, (what, len(drops))
+    signal = n_blocks * cfg.block_samples / cfg.samplerate
+    row = dict(batch=batch, blocks=n_blocks, frames=len(frames), wall_s=wall, signal_s=signal,
+               ms_a_block=wall / n_blocks * 1e3, samples_dropped=sess.samples_dropped_total,
+               drop_share=sess.samples_dropped_total / (
+                   n_blocks * cfg.block_samples + sess.samples_dropped_total))
+    if tee:
+        row.update(blocks_with_a_drop=[b for b, d in enumerate(drops) if d],
+                   slots_with_a_drop=sorted({b % batch for b, d in enumerate(drops) if d}),
+                   pushes_dropped=[d / LIVE_PUSH for d in drops if d],
+                   source_ms_a_block=sum(tee.wait_s) / n_blocks * 1e3)
+    if split:
+        names = {"run": "upload + replay", "tolist": "packed fetch (waits for the replay)",
+                 "_download": "frame downloads"}
+        row["split_ms_a_block"] = {names[k]: v * 1e3 / n_blocks for k, v in spent.items()}
+        row["split_ms_a_block"]["source (its copies, and waiting for the ring)"] = \
+            row["source_ms_a_block"]
+        row["split_ms_a_block"]["the rest"] = row["ms_a_block"] - sum(
+            row["split_ms_a_block"].values())
+    if count:
+        only(launches, box_resample_strided_cuda=n_blocks)
+        row["k1_launches"] = launches["box_resample_strided_cuda"]
+    return dict(row=row, frames=frames, sess=sess, tee=tee)
+
+
+def plugin_formats(cfg, so, tmp, smi):
+    """cplugin drop-free (block=1) at 64 MS/s in uint8, int16 and float32,
+    at batch 1 and 4: every block the capture's (gaps_in: none), frames
+    within PLUGIN_TOL of rawfile's over the same capture, integers and
+    carries equal. Returns the uint8 capture (path, values) and the uint8
+    batch-1 run's recording and K1 launches."""
+    keep = {}
+    for fmt, dtype, raw_fmt in LIVE_FORMATS:
+        path = os.path.join(tmp, f"live.{fmt}")
+        n = LIVE_BLOCKS * cfg.block_samples + (LIVE_TAIL if fmt == "uint8" else 0)
+        values = live_capture(cfg, dtype, n, path)
+        ref, ref_sess, _, _ = source_session(
+            cfg, Params(), load_source("rawfile", f"{path} {cfg.samplerate} {raw_fmt} noloop"),
+            max_blocks=LIVE_BLOCKS)
+        rows = {}
+        for batch in (1, 4):
+            src = plugin_source(so, path, cfg, fmt, "block=1")
+            count = fmt == "uint8" and batch == 1
+            run = live_session(cfg, src, batch, count=count, what=f"cplugin {fmt} block=1")
+            assert plugin_stats(src)["active"] == 0, "readasync did not return"
+            assert run["row"]["samples_dropped"] == 0 and gaps_in(
+                run["tee"].blocks, values, LIVE_PUSH) == [], fmt
+            assert len(run["frames"]) == len(ref) > 0, (fmt, len(run["frames"]), len(ref))
+            err = max(float(np.abs(a - b).max()) for a, b in zip(run["frames"], ref))
+            assert err <= PLUGIN_TOL, (fmt, batch, err)
+            same_ints(run["sess"].state, ref_sess.state, f"cplugin {fmt} batch {batch}")
+            rows[f"batch {batch}"] = dict(run["row"], max_abs_err_vs_rawfile=err)
+            if count:
+                keep.update(recording=run["tee"].blocks, k1=run["row"]["k1_launches"])
+        print(f"live cplugin {fmt} block=1 against rawfile (64MS/s, {smi}): " + json.dumps(rows))
+        if fmt == "uint8":
+            keep.update(path=path, values=values)
+    return keep
+
+
+def premade_rate(cfg, recording, batch, reps=3):
+    """Session over pre-made float32 blocks (a drop-free recording): ms a
+    block, the median of reps runs."""
+    ms = []
+    for _ in range(reps):
+        _, _, dt, _ = source_session(cfg, Params(), RecordedSource(recording, cfg.samplerate),
+                                     batch=batch)
+        ms.append(dt / len(recording) * 1e3)
+    return float(np.median(ms))
+
+
+def plugin_paced(cfg, so, cap, smi):
+    """cplugin at the radio's rate (pace=1, block=0), with gaps the plugin
+    reports at slots 1, 2 and 3 of a batch of 4 (INJECTED), and overloaded
+    (pace=0 and a frame handler of OVERLOAD_FRAME_S, at batch 1 and 4),
+    each held against the CPU step over its recording; the overload runs
+    must drop. Returns K1's launches by path."""
+    path, values = cap["path"], cap["values"]
+    src = plugin_source(so, path, cfg, pace=1)
+    run = live_session(cfg, src, 1, split=True, what="cplugin pace=1")
+    st = plugin_stats(src)
+    assert st["active"] == 0, "readasync did not return"
+    row = dict(run["row"], callbacks_a_second=st["pushes"] / run["row"]["wall_s"],
+               **producer_rate([src], cfg, 1),
+               max_abs_err_vs_cpu_replay=held_live(cfg, run, "cplugin pace=1", values))
+    print(f"live cplugin pace=1 block=0 (64MS/s, {smi}): " + json.dumps(row))
+    # gaps the plugin reports itself (a radio's lost samples): at slots 1,
+    # 2 and 3 of a batch of 4, one inside a block, through block=1
+    ppb = cfg.block_samples // LIVE_PUSH
+    inject = ",".join(f"{b * ppb + k}:{n}" for b, k, n in INJECTED)
+    src = plugin_source(so, path, cfg, loader="block=1", inject=inject)
+    run = live_session(cfg, src, 4, what="cplugin injected gaps batch 4")
+    assert gaps_in(run["tee"].blocks, values, LIVE_PUSH) == [
+        (b, k * LIVE_PUSH, n) for b, k, n in INJECTED], "injected gaps misplaced"
+    row = dict(run["row"], max_abs_err_vs_cpu_replay=held_live(
+        cfg, run, "cplugin injected gaps batch 4"))
+    assert row["slots_with_a_drop"] == [1, 2, 3], row
+    print(f"live cplugin injected gaps, block=1 batch 4 (64MS/s, {smi}): " + json.dumps(row))
+    launches = {}
+    for batch in (1, 4):
+        src = plugin_source(so, path, cfg)
+        run = live_session(cfg, src, batch, count=True, frame_s=OVERLOAD_FRAME_S,
+                           what=f"cplugin overload batch {batch}")
+        assert plugin_stats(src)["active"] == 0, "readasync did not return"
+        row = run["row"]
+        assert row["samples_dropped"] > 0 and all(p == int(p) for p in row["pushes_dropped"]), row
+        row["max_abs_err_vs_cpu_replay"] = held_live(cfg, run, f"cplugin overload batch {batch}",
+                                                     values)
+        print(f"live cplugin overload, pace=0 block=0 batch {batch}, {OVERLOAD_FRAME_S * 1e3:g} ms "
+              f"a frame handled (64MS/s, under the profiler, {smi}): " + json.dumps(row))
+        launches[f"cplugin overload Session 64MS/s batch {batch}, {LIVE_BLOCKS} blocks"] = \
+            row["k1_launches"]
+    return launches
+
+
+def pace_sweep(cfg, so, cap, smi):
+    """cplugin at paces LIVE_PACES, SWEEP_SIGNAL_S of signal each, at batch
+    1 and 4, not recorded: the drop share, ms a block and the producer's
+    rate of each; the highest pace with no drop and the producer at its
+    pace (highest_clean_pace) beside the rate of pre-made blocks."""
+    n = int(round(SWEEP_SIGNAL_S * cfg.samplerate / cfg.block_samples / 4)) * 4
+    runs, best = [], {}
+    for batch in (1, 4):
+        for pace in LIVE_PACES:
+            src = plugin_source(so, cap["path"], cfg, pace=pace)
+            row = live_session(cfg, src, batch, n_blocks=n, record=False,
+                               what=f"pace {pace} batch {batch}")["row"]
+            assert plugin_stats(src)["active"] == 0, "readasync did not return"
+            assert row["samples_dropped"] % LIVE_PUSH == 0, row
+            runs.append(dict(pace=pace, **row, **producer_rate([src], cfg, pace)))
+        best[f"batch {batch}"] = highest_clean_pace([r for r in runs if r["batch"] == batch])
+    block_ms = cfg.block_samples / cfg.samplerate * 1e3
+    premade = {f"batch {b}": premade_rate(cfg, cap["recording"], b) for b in (1, 4)}
+    print(f"live pace sweep (64MS/s, {smi}): " + json.dumps(dict(
+        runs=[{k: r[k] for k in ("pace", "batch", "blocks", "wall_s", "ms_a_block",
+                                  "samples_dropped", "drop_share", "producer_msps",
+                                  "producer_reached_pace")} for r in runs],
+        producer_bound=[(r["pace"], r["batch"]) for r in runs if not r["producer_reached_pace"]],
+        highest_pace_with_no_drop=best, premade_float32_ms_a_block=premade,
+        premade_realtime_factor={k: block_ms / v for k, v in premade.items()},
+        block_ms_of_signal=block_ms)))
+
+
+def channel_captures(cfg, so, tmp, n_blocks):
+    """One replay plugin (a copy of the .so: a plugin's state lives in its
+    library) and one uint8 capture per channel, each of its own raster
+    width: (plugin, capture path, the values it delivers) per channel."""
+    caps = []
+    for c in range(N_CH):
+        so_c = os.path.join(tmp, f"replay{c}.so")
+        shutil.copy(so, so_c)
+        path = os.path.join(tmp, f"ch{c}.u8")
+        caps.append((so_c, path, live_capture(cfg, np.uint8, n_blocks * cfg.block_samples
+                                              + LIVE_TAIL, path, twidth=cfg.width // 2 + 8 * c)))
+    return caps
+
+
+def channels_live_run(cfg, caps, pace, n_blocks, count=False, graph=False):
+    """MultiSession over the plugins of `caps` at `pace`, block=0, recorded
+    by TeeSources, bounded by live_limit, under the profiler with `count`
+    (K1 once per channel a block, no other kernel of the table): held
+    against the CPU channel step over the recordings (every gap where
+    gaps_in finds it, integers exact, frames within CHANNEL_TOL). With
+    `graph`, the float32 graph's census and memory, captured first. Returns
+    the run's row."""
+    srcs = [plugin_source(so_c, path, cfg, pace=pace) for so_c, path, _ in caps]
+    tees = [TeeSource(s) for s in srcs]
+    got = [[] for _ in range(N_CH)]
+    ms = MultiSession(cfg, Params(), tees, on_frame=lambda c, f: got[c].append(f), device=DEV)
+    torch.cuda.synchronize()
+    if graph:
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        captured = torch.float32 not in ms._runner._graphs
+        ms._runner.prepare(torch.float32)
+        torch.cuda.synchronize()
+        graph = dict(census=ms._runner.census(torch.float32),
+                     graphs=sorted(map(str, ms._runner._graphs)), captured_here=captured,
+                     capture_mb=(torch.cuda.memory_allocated() - before) / 2**20,
+                     capture_peak_mb=(torch.cuda.max_memory_allocated() - before) / 2**20,
+                     allocated_mb=torch.cuda.memory_allocated() / 2**20)
+    with live_limit(f"config 5 live pace={pace}", ms.stop), \
+            (card_counts() if count else contextlib.nullcontext(None)) as launches:
+        t0 = time.perf_counter()
+        ms.run(max_blocks=n_blocks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for s in srcs:
+        assert plugin_stats(s)["active"] == 0, "readasync did not return"
+    recs = [t.blocks for t in tees]
+    assert all(len(r) == n_blocks for r in recs), [len(r) for r in recs]
+    for c, (rec, (_, _, values)) in enumerate(zip(recs, caps)):
+        assert ms.samples_dropped_total[c] == tees[c].samples_dropped, c
+        gaps_in(rec, values, LIVE_PUSH)
+    want, want_state = cpu_channel_replay(cfg, recs)
+    worst = 0.0
+    for c in range(N_CH):
+        assert len(got[c]) == len(want[c]) > 0, (c, len(got[c]), len(want[c]))
+        worst = max([worst] + [float(np.abs(a - b).max()) for a, b in zip(got[c], want[c])])
+    assert worst <= CHANNEL_TOL, worst
+    same_ints(ms.state, want_state, f"config 5 live pace={pace}")
+    waits = [sum(t.wait_s) * 1e3 / n_blocks for t in tees]
+    dropped = sum(ms.samples_dropped_total)
+    row = dict(pace=pace, blocks=n_blocks, frames=[len(g) for g in got], wall_s=wall,
+               signal_s=n_blocks * cfg.block_samples / cfg.samplerate,
+               ms_a_block=wall / n_blocks * 1e3,
+               aggregate_msps=N_CH * n_blocks * cfg.block_samples / wall / 1e6,
+               realtime_msps=N_CH * cfg.samplerate / 1e6,
+               samples_dropped=ms.samples_dropped_total,
+               drop_share=dropped / (N_CH * n_blocks * cfg.block_samples + dropped),
+               **producer_rate(srcs, cfg, pace),
+               source_wait_ms_a_block=waits, waited_longest=int(np.argmax(waits)),
+               max_abs_err_vs_cpu_channel_step=worst)
+    if graph:
+        row["float32_channel_graph"] = graph
+    if count:
+        only(launches, box_resample_strided_cuda=N_CH * n_blocks)
+        row["k1_launches"] = launches["box_resample_strided_cuda"]
+    return row
+
+
+def live_channels(cfg, so, tmp, smi, n_blocks=8):
+    """Config 5 live: MultiSession over 8 replay plugins, one capture per
+    raster width, block=0: at pace=1 (the first float32 ChannelRunner: its
+    census and memory), held against the CPU channel step over its
+    recordings; then at CH5_PACES, not recorded (the drop share, ms a block
+    and the producers' rate of each); then overloaded (pace=0), held and
+    under the profiler, in a process of its own (live_channels_overload).
+    Returns K1's launches in the overloaded run."""
+    caps = channel_captures(cfg, so, tmp, n_blocks)
+    row = channels_live_run(cfg, caps, 1, n_blocks, graph=True)
+    print(f"live config 5 MultiSession over 8 cplugin, pace=1 block=0 (8x16MS/s, {smi}): "
+          + json.dumps(row))
+    sweep = [{k: row[k] for k in ("pace", "blocks", "wall_s", "ms_a_block", "drop_share",
+                                  "producer_msps", "producer_reached_pace")}]
+    for pace in CH5_PACES:
+        srcs = [plugin_source(so_c, path, cfg, pace=pace) for so_c, path, _ in caps]
+        ms = MultiSession(cfg, Params(), srcs, device=DEV)
+        torch.cuda.synchronize()
+        with live_limit(f"config 5 pace {pace}", ms.stop):
+            t0 = time.perf_counter()
+            ms.run(max_blocks=CH5_SWEEP_BLOCKS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        assert all(plugin_stats(s)["active"] == 0 for s in srcs), "readasync did not return"
+        dropped = sum(ms.samples_dropped_total)
+        sweep.append(dict(pace=pace, blocks=CH5_SWEEP_BLOCKS, wall_s=wall,
+                          ms_a_block=wall / CH5_SWEEP_BLOCKS * 1e3,
+                          drop_share=dropped / (N_CH * CH5_SWEEP_BLOCKS * cfg.block_samples
+                                                + dropped),
+                          **producer_rate(srcs, cfg, pace)))
+    print(f"live config 5 pace sweep ({smi}): " + json.dumps(dict(
+        runs=sorted(sweep, key=lambda r: r["pace"]),
+        producer_bound=[r["pace"] for r in sweep if not r["producer_reached_pace"]],
+        highest_pace_with_no_drop=highest_clean_pace(sweep))))
+    run = subprocess.run([sys.executable, os.path.abspath(__file__), "--live-channels-overload"],
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, f"--live-channels-overload failed:\n{run.stderr[-3000:]}"
+    row = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"live config 5 MultiSession over 8 cplugin, pace=0 block=0 (8x16MS/s, under the "
+          f"profiler, in a process of its own, {smi}): " + json.dumps(row))
+    return row["k1_launches"]
+
+
+def live_channels_overload(n_blocks=8):
+    """`chip_smoke.py --live-channels-overload`, in a process of its own:
+    config 5's overloaded live run (pace=0, block=0; channels_live_run),
+    its float32 ChannelRunner captured here and replayed under the
+    profiler: drops on at least one channel, held against the CPU channel
+    step over its recordings, K1 once per channel a block. A process of its
+    own, because late in the smoke run's process a profiled replay of this
+    graph faults (an illegal address; PERF.md section 7, ROADMAP Queue 3)."""
+    so = native.build_replay_plugin()
+    with tempfile.TemporaryDirectory() as tmp:
+        caps = channel_captures(CH5, so, tmp, n_blocks)
+        row = channels_live_run(CH5, caps, 0, n_blocks, count=True, graph=True)
+    assert sum(row["samples_dropped"]) > 0, row["samples_dropped"]
+    print(json.dumps(row))
+
+
+def profiled_fault():
+    """`chip_smoke.py --profiled-fault`: the test of the open fault of
+    ROADMAP Queue 3. The whole smoke run (smoke) in this process, then config
+    5's float32 ChannelRunner, which its live phase captured, replayed over
+    recorded float32 blocks under the profiler: with CPU activity only, then
+    with CUDA activity (CUPTI). While the fault stands, the second replay
+    ends the process with CUDA's illegal address; exits 0 when both pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    smoke()
+    so = native.build_replay_plugin()
+    with tempfile.TemporaryDirectory() as tmp:
+        n = 2 * CH5.block_samples
+        srcs = [RecordedSource([SourceBlock(v[b * n:(b + 1) * n], 0) for b in range(4)],
+                               CH5.samplerate) for _, _, v in channel_captures(CH5, so, tmp, 4)]
+        for acts in ([ProfilerActivity.CPU], [ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            ms = MultiSession(CH5, Params(), srcs, device=DEV)
+            assert torch.float32 in ms._runner._graphs, "the live phase captured no float32 graph"
+            with profile(activities=acts):
+                ms.run(max_blocks=4)
+                torch.cuda.synchronize()
+            print(f"profiled ({', '.join(a.name for a in acts)}) replays of config 5's float32 "
+                  "ChannelRunner passed", flush=True)
+
+
+def simlive_producer_rate(cfg, seconds=1.0):
+    """simlive's producer unthrottled (pace=0), the consumer discarding:
+    samples produced (delivered and dropped) a second, in MS/s."""
+    src = load_source("simlive", f"{cfg.height} {cfg.width // 2} {cfg.refreshrate} "
+                                 f"{cfg.samplerate} 0.02")
+    delivered = dropped = 0
+    t0 = time.perf_counter()
+    with live_limit("simlive producer", src.stop):
+        for blk in src.stream(cfg.block_samples):
+            delivered += blk.samples.size // 2
+            dropped += blk.dropped
+            if time.perf_counter() - t0 >= seconds:
+                break
+        src.stop()
+    wall = time.perf_counter() - t0
+    return dict(msps=(delivered + dropped) / wall / 1e6, dropped=dropped, wall_s=wall)
+
+
+def simlive_channels(cfg, smi, n_blocks=4):
+    """MultiSession over 8 simlive channels (their own line widths) at
+    pace=1, held against the CPU channel step over the recordings: whether
+    the producers or the receiver set the rate."""
+    tees = [TeeSource(load_source("simlive", f"{cfg.height} {cfg.width // 2 + 8 * c} "
+                                             f"{cfg.refreshrate} {cfg.samplerate} 0.02 pace=1"))
+            for c in range(N_CH)]
+    got = [[] for _ in range(N_CH)]
+    ms = MultiSession(cfg, Params(), tees, on_frame=lambda c, f: got[c].append(f), device=DEV)
+    torch.cuda.synchronize()
+    with live_limit("simlive MultiSession", ms.stop):
+        t0 = time.perf_counter()
+        ms.run(max_blocks=n_blocks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    want, want_state = cpu_channel_replay(cfg, [t.blocks for t in tees])
+    worst = 0.0
+    for c in range(N_CH):
+        assert len(got[c]) == len(want[c]), (c, len(got[c]), len(want[c]))
+        worst = max([worst] + [float(np.abs(a - b).max()) for a, b in zip(got[c], want[c])])
+    assert worst <= CHANNEL_TOL, worst
+    same_ints(ms.state, want_state, "simlive MultiSession")
+    signal = n_blocks * cfg.block_samples / cfg.samplerate
+    dropped = sum(ms.samples_dropped_total)
+    who = ("the receiver: it fell behind the producers (drops)" if dropped else
+           "the producers: no drop, slower than real time" if wall > 1.1 * signal else
+           "real time: no drop")
+    return dict(blocks=n_blocks, frames=[len(g) for g in got], wall_s=wall, signal_s=signal,
+                samples_dropped=ms.samples_dropped_total, rate_set_by=who,
+                source_wait_ms_a_block=[sum(t.wait_s) * 1e3 / n_blocks for t in tees],
+                max_abs_err_vs_cpu_channel_step=worst)
+
+
+def held_stopped(cfg, frames, state, rec, resets, what):
+    """A live run stopped from outside (rx.stop) against the CPU step over
+    its recording, the autocorrelation reset before each block of `resets`
+    as the session reset it (a retune's): the run took its last recorded
+    block from the source and may have stopped before stepping it, so the
+    CPU steps the recording with and without that block, and the card's
+    carries must equal one of the two exactly (phase_fix, the resampler's
+    position, moves every block), its frames that one's within GRAPH_TOL.
+    Returns (blocks stepped, the worst frame difference)."""
+    step = make_step(cfg, Params(), device="cpu")
+    state_cpu = init_state(cfg, Params().fir_lowpass_taps, device="cpu")
+    want, after = [], []
+    for b, blk in enumerate(rec):
+        if b in resets:
+            state_cpu = reset_autocorr(state_cpu)
+        state_cpu, out = step(state_cpu, torch.from_numpy(np.asarray(blk.samples)),
+                              StepControls(int(blk.dropped), 0, 0.0))
+        want.append([f for _, f in _valid_frames(out)])
+        after.append(state_cpu)
+    for n in (len(rec), len(rec) - 1):
+        if torch.equal(state.phase_fix.cpu(), after[n - 1].phase_fix):
+            return n, held_to_cpu_step(frames, state, sum(want[:n], []), after[n - 1], what)
+    raise AssertionError(f"{what}: the card's carries are the CPU step's after neither "
+                         f"{len(rec)} nor {len(rec) - 1} recorded blocks")
+
+
+def live_front_doors(cfg, so, cap, tmp, smi, n_blocks=8):
+    """TSDR over cplugin (pace=1), its source recorded by a TeeSource:
+    started in the background, the plugin's samplerate, base frequency and
+    gain set while it streams and seen by the plugin, then stopped (its
+    readasync returns, its thread joins), and held against the CPU step
+    over its recording (held_stopped); cli.main --source cplugin against
+    --source rawfile over the same capture (frames within PLUGIN_TOL, K1
+    once a block). Returns K1's launches through the command line."""
+    resets = []  # the blocks before which the session reset the autocorrelation: on its
+    # own thread, as it takes a block from the tee, so the tee's last block is that block
+
+    def on_value(ev):
+        if ev.value_id == VALUE_ID.AUTOCORRECT_RESET:
+            resets.append(len(tee.blocks) - 1)
+
+    rx = TSDR(on_value=on_value, block_samples=cfg.block_samples, device=DEV)
+    rx.load_source("cplugin", f"{so} -- {cap['path']} {int(cfg.samplerate)} uint8 pace=1")
+    plugin = rx._source
+    rx._source = tee = TeeSource(plugin)  # TSDR loads sources by name only: tee the loaded one
+    rx.set_resolution(cfg.height, cfg.refreshrate)
+    frames = []
+    rx.start(on_frame=frames.append, background=True)
+    deadline = time.time() + 60
+    while len(frames) < 2:
+        assert time.time() < deadline and rx.is_running, "TSDR cplugin: no frames"
+        time.sleep(0.005)
+    assert rx.session.source is tee
+    reader = plugin._reader
+    assert tee.set_samplerate(cfg.samplerate / 2) == cfg.samplerate  # a file's rate is fixed
+    rx.set_base_freq(433.92e6)
+    rx.set_gain(0.5)
+    seen = len(frames)
+    while len(frames) < seen + 2:
+        assert time.time() < deadline and rx.is_running, "TSDR cplugin: stopped streaming"
+        time.sleep(0.005)
+    st = plugin_stats(plugin)
+    assert st["basefreq"] == 433920000 and st["gain"] == 0.5 and st["setsamplerate_calls"] == 1, st
+    t0 = time.perf_counter()
+    rx.stop()
+    stop_ms = (time.perf_counter() - t0) * 1e3
+    assert not rx.is_running and not reader.is_alive() and plugin_stats(plugin)["active"] == 0
+    sess = rx.session
+    assert sess.samples_dropped_total <= tee.samples_dropped, "drops counted past the recording"
+    gaps_in(tee.blocks, cap["values"], LIVE_PUSH)
+    assert resets, "set_base_freq reset no autocorrelation"
+    stepped, err = held_stopped(cfg, frames, sess.state, tee.blocks, resets,
+                                "TSDR cplugin background")
+    assert sess.samples_dropped_total == sum(b.dropped for b in tee.blocks[:stepped])
+    rx.close()
+    tsdr = dict(frames=len(frames), blocks_recorded=len(tee.blocks), blocks_stepped=stepped,
+                autocorrelation_reset_before_blocks=resets,
+                samples_dropped=sess.samples_dropped_total, stop_ms=stop_ms,
+                basefreq=st["basefreq"], gain=st["gain"], max_abs_err_vs_cpu_replay=err)
+
+    saved = {}
+    for name, spec in (("rawfile", f"{cap['path']} {cfg.samplerate} uint8"),
+                       ("cplugin", f"{so} block=1 -- {cap['path']} {int(cfg.samplerate)} uint8")):
+        out = os.path.join(tmp, f"cli_{name}")
+        with card_counts() as launches:
+            log, dt = run_cli(["--source", name, "--source-params", spec,
+                               "--block-samples", str(cfg.block_samples),
+                               "--height", str(cfg.height), "--rate", str(cfg.refreshrate),
+                               "--out", out, "--save-every", "1", "--format", "npy",
+                               "--blocks", str(n_blocks), "--device", str(DEV)])
+        only(launches, box_resample_strided_cuda=n_blocks)
+        saved[name] = [np.load(os.path.join(out, f)) for f in sorted(os.listdir(out))]
+    assert len(saved["cplugin"]) == len(saved["rawfile"]) > 0, {k: len(v) for k, v in saved.items()}
+    err = max(float(np.abs(a - b).max()) for a, b in zip(saved["cplugin"], saved["rawfile"]))
+    assert err <= PLUGIN_TOL, err
+    print(f"live front doors (64MS/s, {smi}): " + json.dumps(dict(
+        tsdr_cplugin_background=tsdr, cli_cplugin_frames=len(saved["cplugin"]),
+        cli_cplugin_vs_rawfile_max_abs=err, k1_launches_cli_cplugin=n_blocks)))
+    return n_blocks
+
+
+def live_phase(smi, simlive_k1):
+    """Phase 12: the live path (see its section note). A worker thread's
+    exception fails the run. Returns K1's launches by path."""
+    t0 = time.time()
+    g64 = GEOMETRIES["64MS/s"]
+    so = native.build_replay_plugin()
+    print(f"built the replay plugin ({os.path.basename(so)}) in {time.time() - t0:.1f} s; threads "
+          f"alive: {sorted(t.name for t in threading.enumerate())}")
+    launches = {"simlive Session 8MS/s, 8 blocks": simlive_k1}
+    with worker_faults(), tempfile.TemporaryDirectory() as tmp:
+        cap = plugin_formats(g64, so, tmp, smi)
+        launches[f"cplugin uint8 block=1 Session 64MS/s, {LIVE_BLOCKS} blocks"] = cap["k1"]
+        print(f"live formats took {time.time() - t0:.1f} s")
+        launches.update(plugin_paced(g64, so, cap, smi))
+        print(f"live paced and overload took {time.time() - t0:.1f} s")
+        pace_sweep(g64, so, cap, smi)
+        print(f"live pace sweep took {time.time() - t0:.1f} s")
+        launches["config 5 live MultiSession 8 cplugin float32 overloaded, 8 blocks (own "
+                 "process)"] = live_channels(CH5, so, tmp, smi)
+        print(f"live config 5 took {time.time() - t0:.1f} s")
+        rates = {name: simlive_producer_rate(cfg, 1.5) for name, cfg in
+                 (("8MS/s", GEOMETRIES["8MS/s"]), ("16MS/s", CH5), ("64MS/s", g64))}
+        print(f"live simlive producer, unthrottled, consumer discarding ({smi}): "
+              + json.dumps(rates))
+        print(f"live simlive MultiSession 8x16MS/s pace=1 ({smi}): "
+              + json.dumps(simlive_channels(CH5, smi)))
+        launches["cli --source cplugin 64MS/s, 8 blocks"] = live_front_doors(g64, so, cap, tmp,
+                                                                             smi)
+    print(f"live phase took {time.time() - t0:.1f} s")
+    return launches
+
+
 KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
     "K1": (box_resample_strided_cuda, "strided_resample.cu",
            "tempestsdr_tpu/pallas/strided_kernel.py:65"),
@@ -3676,8 +4377,17 @@ KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--first-block" and sys.argv[2] in ("cold", "warm"):
         return first_block(sys.argv[2])
+    if sys.argv[1:] == ["--live-channels-overload"]:
+        return live_channels_overload()
+    if sys.argv[1:] == ["--profiled-fault"]:
+        return profiled_fault()
     if sys.argv[1:]:
         sys.exit("usage: chip_smoke.py")
+    smoke()
+
+
+def smoke():
+    """The smoke run (see the module docstring)."""
     smi = card()
     t_start = time.time()
     build.build(kernels.SOURCES)
@@ -3737,6 +4447,7 @@ def main():
     channel_launches = channels_phase(smi)
     flag_launches["K1"].update(channel_flags_phase(smi))
     sharded_launches, range_row = sharded_phase(smi)
+    live_launches = live_phase(smi, channel_launches.pop("simlive"))
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
     kern = []
@@ -3762,6 +4473,7 @@ def main():
             kern[-1]["launches_by_path"].update(flag_launches[kid])
         if kid == "K1":
             kern[-1]["launches_by_path"].update(sharded_launches)
+            kern[-1]["launches_by_path"].update(live_launches)
             kern[-1]["range_entry"] = dict(
                 wrapper=box_resample_range_strided_cuda.__name__, ms=range_row["ms"],
                 wrapper_ms=range_row["wrapper_ms"],

@@ -6,6 +6,10 @@ build/ directory, named by a hash of the source and the flags
 (build/libtsdr_io-<hash>.so), so an edited source never loads a stale
 build. No pip/pybind dependency. Callers check `available()` and use the
 pure-Python path if the toolchain is missing.
+
+`build_replay_plugin()` builds replay_plugin.c, a test fixture to the
+reference's binary plugin ABI that the `cplugin` source loads, with gcc
+into the same directory (build/tsdrplugin_replay-<hash>.so).
 """
 
 from __future__ import annotations
@@ -25,19 +29,58 @@ _lib = None
 _err = None
 
 
+def _hashed(prefix: str, src: str, flags) -> str:
+    """build/<prefix>-<hash of the source and the flags>.so"""
+    h = hashlib.sha256(" ".join(flags).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD, f"{prefix}-{h.hexdigest()[:12]}.so")
+
+
 def lib_path() -> str:
     """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD, f"libtsdr_io-{h.hexdigest()[:12]}.so")
+    return _hashed("libtsdr_io", _SRC, _FLAGS)
 
 
-def _build(so: str) -> None:
+def _build(so: str, compiler: str = "g++", flags=_FLAGS, src: str = _SRC) -> None:
     os.makedirs(BUILD, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp], check=True, capture_output=True, text=True)
+    subprocess.run([compiler, *flags, src, "-o", tmp], check=True, capture_output=True, text=True)
     os.replace(tmp, so)
+
+
+_PLUGIN_SRC = os.path.join(_DIR, "replay_plugin.c")
+_PLUGIN_FLAGS = ["-O2", "-fPIC", "-shared"]
+
+
+def build_replay_plugin() -> str:
+    """Build the replay plugin (replay_plugin.c, a fixture that stands in
+    for a user's compiled TSDRPlugin) with gcc if it is not built yet, and
+    return the path of its shared object. Raises RuntimeError with the
+    compiler's message when the build fails."""
+    so = _hashed("tsdrplugin_replay", _PLUGIN_SRC, _PLUGIN_FLAGS)
+    with _lock:
+        if not os.path.exists(so):
+            try:
+                _build(so, "gcc", _PLUGIN_FLAGS, _PLUGIN_SRC)
+            except (OSError, subprocess.CalledProcessError) as e:
+                raise RuntimeError(f"replay plugin build failed: {getattr(e, 'stderr', e)}")
+    return so
+
+
+REPLAY_STATS = ("pushes", "samples_pushed", "samples_injected", "active", "readasync_calls",
+                "setsamplerate_calls", "basefreq", "gain", "first_push_s", "last_push_s")
+
+
+def replay_plugin_stats(dll) -> dict:
+    """What a loaded replay plugin (a ctypes library, e.g. CPluginSource's)
+    did since its init: its replay_plugin_stats counters by REPLAY_STATS'
+    names ("active" is 1 while its readasync runs; first_push_s and
+    last_push_s are the monotonic clock's seconds at its first and last
+    push)."""
+    out = (ctypes.c_double * len(REPLAY_STATS))()
+    dll.replay_plugin_stats(out)
+    return dict(zip(REPLAY_STATS, out))
 
 
 def load():

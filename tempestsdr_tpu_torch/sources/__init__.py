@@ -3,7 +3,9 @@ the JAX package so the port imports nothing of it: the Source protocol,
 recorded-file replay, the synthetic emanation generator, the simulated live
 source (simlive), rtl_tcp, an external process (exec) and the reference's
 binary C plugin ABI (cplugin). The ring-backed sources run over the native
-IO runtime in ..native."""
+IO runtime in ..native. The tee that records what a live source delivered,
+and its playback, are test and measurement fixtures in .tee, not exported
+here."""
 
 from .base import Source, SourceBlock, load_source  # noqa: F401
 from .rawfile import RawFileSource  # noqa: F401

@@ -260,7 +260,9 @@ class CPluginSource(Source):
                 if got < block_bytes:
                     break  # plugin returned / stop()
                 dropped_bytes = ring.take_dropped()
-                arr = np.frombuffer(bytes(buf), dtype=np.float32)
+                # each block's bytearray is fresh, so the array over it is
+                # the consumer's alone: no copy of the block
+                arr = np.frombuffer(buf, dtype=np.float32)
                 yield SourceBlock(arr, int(dropped_bytes // _BYTES_PER_SAMPLE))
         finally:
             self.stop()

@@ -159,7 +159,8 @@ class SimulatedLiveSource(Source):
                 if got < block_bytes:
                     break  # closed
                 dropped_bytes = ring.take_dropped()
-                arr = np.frombuffer(bytes(buf), dtype=np.float32)
+                # a fresh bytearray each block: the array over it needs no copy
+                arr = np.frombuffer(buf, dtype=np.float32)
                 yield SourceBlock(arr, int(dropped_bytes // 8))
         finally:
             self.stop()

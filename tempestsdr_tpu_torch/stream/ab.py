@@ -3,7 +3,8 @@ the port, in turns, on one NVIDIA card. Run from the repository's root:
 
     python3 -m tempestsdr_tpu_torch.stream.ab --tree LABEL=DIR [--tree ...]
         [--rounds N] [--blocks N] [--batches 1,4,8] [--channels C]
-        [--rate SR --height H --block N] [--device cpu]
+        [--live] [--rate SR --height H --block N]
+        [--device cpu]
 
 Each DIR holds a tree of the repository (e.g. an earlier commit unpacked with
 `git archive`); the repository itself is the tree "this". Every round starts
@@ -27,6 +28,15 @@ geometry given (by default chip_smoke.py's 64 MS/s one: 64e6, 628 lines,
   widths, `blocks` blocks each: a warm-up run, three timed runs (ms a block
   and aggregate MS/s), one under the profiler.
 
+With --live, each process measures the live path instead, over the
+repo's replay plugin (native/replay_plugin.c, built from this tree, a
+fixture to the reference's binary plugin ABI) replaying one uint8 capture
+of the emanation that the parent writes, through `cplugin` and Session
+at batch 1: a drop-free run (block=1) whose frames' digest must be equal
+in every tree; three runs with the plugin unthrottled (pace=0, block=0:
+ms a block, the host ms a block spent in the source's stream, the share
+of samples dropped).
+
 Prints one JSON line per process and a summary line (per tree: the median
 over its processes of each process's best run, the one of least ms or
 most MS/s, or of its one profiled value), and writes them to
@@ -35,11 +45,13 @@ small geometry only, and no --channels).
 """
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -124,6 +136,9 @@ def child(tree: str, args) -> None:
 
     cfg = PipelineConfig(samplerate=args.rate, height=args.height, refreshrate=60.0,
                          block_samples=args.block)
+    if args.plugin:
+        print(json.dumps(dict(blocks=n_blocks, **live_child(cfg, args, dev, sync))))
+        return
     blocks = make_blocks(cfg, cfg.width // 2)
     row = dict(blocks=n_blocks)
     for k in args.batches:
@@ -166,6 +181,88 @@ def child(tree: str, args) -> None:
     print(json.dumps(row))
 
 
+def live_child(cfg, args, dev, sync) -> dict:
+    """The live measurements of one process (see --live)."""
+    import numpy as np
+
+    from tempestsdr_tpu_torch.params import Params
+    from tempestsdr_tpu_torch.sources.base import Source, load_source
+    from tempestsdr_tpu_torch.stream.session import Session, SessionCallbacks, warm_compile_step
+
+    class Timed(Source):
+        """A source, with the host seconds spent in its stream counted (not
+        sources.tee.TeeSource: a tree older than the tee, as a parent under
+        test may be, has none)."""
+
+        def __init__(self, src):
+            self.src, self.wait = src, 0.0
+
+        def init(self, params):
+            pass
+
+        def name(self):
+            return self.src.name()
+
+        def samplerate(self):
+            return self.src.samplerate()
+
+        def stream(self, block_samples):
+            it = iter(self.src.stream(block_samples))
+            while True:
+                t0 = time.perf_counter()
+                blk = next(it, None)
+                self.wait += time.perf_counter() - t0
+                if blk is None:
+                    return
+                yield blk
+
+        def stop(self):
+            self.src.stop()
+
+    def run(loader, n):
+        src = Timed(load_source("cplugin", f"{args.plugin} {loader} -- {args.capture} "
+                                           f"{int(cfg.samplerate)} uint8"))
+        frames = []
+        sess = Session(cfg, Params(), src, SessionCallbacks(on_frame=frames.append), device=dev)
+        sync()
+        t0 = time.perf_counter()
+        sess.run(max_blocks=n)
+        sync()
+        wall = time.perf_counter() - t0
+        dropped = sess.samples_dropped_total
+        return (frames, wall / n * 1e3, src.wait / n * 1e3,
+                dropped / (n * cfg.block_samples + dropped))
+
+    warm_compile_step(cfg, Params(), raw_dtype=np.float32, device=dev)
+    frames, *_ = run("block=1", args.blocks)
+    assert frames and all(np.isfinite(f).all() for f in frames)
+    row = dict(frames=len(frames),
+               frames_sha256=hashlib.sha256(b"".join(f.tobytes() for f in frames)).hexdigest())
+    over = [run("", args.blocks)[1:] for _ in range(3)]
+    row.update(overload_ms_per_block=[o[0] for o in over],
+               overload_source_ms_per_block=[o[1] for o in over],
+               overload_drop_share=[o[2] for o in over])
+    return row
+
+
+def write_live_capture(rate, height, block, n_blocks, path) -> str:
+    """This tree's replay plugin, built; and a uint8 capture of the
+    emanation, n_blocks blocks and a tail, written to path."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from tempestsdr_tpu_torch import native
+    from tempestsdr_tpu_torch.config import PipelineConfig
+    from tempestsdr_tpu_torch.sources.synthetic import render_test_pattern, synth_iq
+
+    cfg = PipelineConfig(samplerate=rate, height=height, refreshrate=60.0, block_samples=block)
+    raster = render_test_pattern(cfg.height, cfg.width // 2)
+    synth_iq(raster * 0.6, samplerate=cfg.samplerate, pixelclock=raster.size * cfg.refreshrate,
+             n_samples=n_blocks * block + 1000, dc=0.3, noise=0.02,
+             dtype=np.uint8).tofile(path)
+    return native.build_replay_plugin()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", action="append", default=[], metavar="LABEL=DIR")
@@ -177,11 +274,19 @@ def main():
     ap.add_argument("--height", type=int, default=628)
     ap.add_argument("--block", type=int, default=786432)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--live", action="store_true", help="the live path (see above)")
     ap.add_argument("--child", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--plugin", help=argparse.SUPPRESS)
+    ap.add_argument("--capture", help=argparse.SUPPRESS)
     args = ap.parse_args()
     args.batches = [int(k) for k in args.batches.split(",")]
     if args.child:
         return child(args.child, args)
+    tmp = tempfile.TemporaryDirectory()
+    if args.live:
+        args.capture = os.path.join(tmp.name, "live.u8")
+        args.plugin = write_live_capture(args.rate, args.height, args.block, args.blocks,
+                                         args.capture)
     trees = [tuple(t.split("=", 1)) for t in args.tree]
     order = trees + [("this", REPO)] * 2 + trees[::-1]
     smi = "cpu"
@@ -192,6 +297,8 @@ def main():
     opts = ["--blocks", str(args.blocks), "--batches", ",".join(map(str, args.batches)),
             "--channels", str(args.channels), "--rate", str(args.rate), "--height",
             str(args.height), "--block", str(args.block), "--device", args.device]
+    if args.live:
+        opts += ["--plugin", args.plugin, "--capture", args.capture]
     rows = []
     for rnd in range(args.rounds):
         for label, tree in order:
@@ -210,7 +317,12 @@ def main():
         best = lambda k, v: (max if k.endswith("msps") else min)(v)  # noqa: E731
         summary[label] = {
             k: statistics.median(best(k, r[k]) if isinstance(r[k], list) else r[k] for r in mine)
-            for k in mine[0] if k not in ("round", "tree", "blocks")}
+            for k in mine[0] if k not in ("round", "tree", "blocks", "frames_sha256")}
+    if args.live:
+        digests = {r["frames_sha256"] for r in rows}
+        summary["frames_equal_in_every_tree"] = len(digests) == 1
+        assert len(digests) == 1, "the drop-free runs' frames differ between trees"
+    tmp.cleanup()
     print("summary " + json.dumps(summary))
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "session_ab.json"), "w") as f:
