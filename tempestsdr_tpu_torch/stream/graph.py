@@ -6,12 +6,15 @@ is a CUDA graph: the device step (pipeline.make_step) reads nothing to the
 host, so K of its calls can be captured once and replayed per batch.
 
 BlockRunner(config, params, n_blocks, device).run(state, raws, controls):
-raws [K, 2n] in the source's dtype, controls [K, 3] (samples_dropped,
-syncoffset, motionblur per block, as numbers or one float64 tensor).
-Returns (state', outputs stacked over the blocks, packed), where packed is
-float64 [K, PACKED + frames_per_block]: per block the small values a
-session reads once per batch (refreshrate, autogain, round count and flag,
-then one frame_valid flag per emit slot; see packed_values).
+raws [K, 2n] in the source's dtype (or a list of K blocks, which the
+runner stacks), controls [K, 3] (samples_dropped, syncoffset, motionblur
+per block, as numbers or one float64 tensor). Returns (state', outputs
+stacked over the blocks, packed), where packed is float64 [K, PACKED +
+frames_per_block]: per block the small values a session reads once per
+batch (refreshrate, autogain, round count and flag, then one frame_valid
+flag per emit slot; see packed_values). A call is two spans
+(utils/profiling.py span): tsdr/upload (the stacking, the copies into the
+graph's static inputs) and tsdr/replay; a capture is tsdr/capture.
 
 On a CUDA device the runner captures, once per raw dtype, the K steps into
 one torch.cuda.CUDAGraph over static buffers: the raw blocks [K, 2n], the
@@ -66,6 +69,7 @@ import torch
 from ..config import PipelineConfig
 from ..kernels import graph_cond
 from ..params import Params
+from ..utils.profiling import span
 from .pipeline import CONTROL_DTYPES, StepControls, make_channels_step_hybrid, make_step
 from .state import StepOutputs, StreamState, init_state, state_compatible, state_leaves
 
@@ -162,29 +166,36 @@ class BlockRunner:
     # ---- the K blocks
 
     def run(self, state: StreamState, raws, controls):
-        raws = torch.as_tensor(raws)
-        if raws.dim() != 2 or raws.shape[0] != self.n_blocks:
-            raise ValueError(f"{tuple(raws.shape)} {self.rows}, the runner takes "
-                             f"[{self.n_blocks}, 2n]")
-        ctl = torch.as_tensor(controls, dtype=torch.float64)
-        if tuple(ctl.shape) != (self.n_blocks, 3):
-            raise ValueError(f"controls {tuple(ctl.shape)}, the runner takes [{self.n_blocks}, 3]")
-        if not self.graphed:
-            state, out = self._body(state, raws.to(self.device), ctl.to(self.device))
+        with span("tsdr/upload"):
+            raws = _as_rows(raws)
+            if raws.dim() != 2 or raws.shape[0] != self.n_blocks:
+                raise ValueError(f"{tuple(raws.shape)} {self.rows}, the runner takes "
+                                 f"[{self.n_blocks}, 2n]")
+            ctl = torch.as_tensor(controls, dtype=torch.float64)
+            if tuple(ctl.shape) != (self.n_blocks, 3):
+                raise ValueError(f"controls {tuple(ctl.shape)}, the runner takes "
+                                 f"[{self.n_blocks}, 3]")
+            if self.graphed:
+                g = self.prepare(raws.dtype)
+                _copy_in(self._static, state)
+                g.raws.copy_(raws)
+                g.ctl.copy_(ctl)
+            else:
+                raws, ctl = raws.to(self.device), ctl.to(self.device)
+        with span("tsdr/replay"):
+            if self.graphed:
+                g.graph.replay()
+                return self._static, g.outputs, g.packed
+            state, out = self._body(state, raws, ctl)
             return state, out, packed_values(out)
-        g = self.prepare(raws.dtype)
-        _copy_in(self._static, state)
-        g.raws.copy_(raws)
-        g.ctl.copy_(ctl)
-        g.graph.replay()
-        return self._static, g.outputs, g.packed
 
     def prepare(self, dtype) -> _Graph:
         """The graph for raws of `dtype`, captured first if this runner has
         none yet (run does this at first use; the capture synchronizes)."""
         g = self._graphs.get(dtype)
         if g is None:
-            g = self._graphs[dtype] = self._capture(dtype)
+            with span("tsdr/capture"):
+                g = self._graphs[dtype] = self._capture(dtype)
         return g
 
     def _capture(self, dtype) -> _Graph:
@@ -379,7 +390,8 @@ class StagedRunner:
         key = (raw.dtype, tuple(raw.shape))
         s = self._staged.get(key)
         if s is None:
-            s = self._staged[key] = self._capture(state, raw, ctl)
+            with span("tsdr/capture"):
+                s = self._staged[key] = self._capture(state, raw, ctl)
         _copy_in(self._static, state)
         debug = self.stages.sync_debug
         with debug("error"):
@@ -436,6 +448,14 @@ class StagedRunner:
         `dtype` (graph_cond.census: parent, IF and body nodes)."""
         s = next(v for (d, _), v in self._staged.items() if d == dtype)
         return [g.census() for g in s.graphs]
+
+
+def _as_rows(raws) -> torch.Tensor:
+    """A runner's raws as one [rows, 2n] tensor: a list of 1-D blocks
+    stacked (one block as a view, no copy), an array or tensor as it is."""
+    if isinstance(raws, list):
+        raws = raws[0][None] if len(raws) == 1 else np.stack(raws)
+    return torch.as_tensor(raws)
 
 
 def _write_leaves(dst: StreamState, src: StreamState) -> None:

@@ -16,7 +16,9 @@ blocks into the runner, the replay, ONE packed fetch of [N, PACKED + K]
 (every channel's frame-valid flags and round flag), then the valid frames in
 one download and, where a round completed, those channels' plots in
 another. A session holds its runner while it runs and takes its state back
-in tensors of its own when the run ends.
+in tensors of its own when the run ends. Under a profiler the loop carries
+Session's spans (stream/session.py): tsdr/source for each channel's block,
+tsdr/dispatch from the drop counts to the end of the fan-out.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..events import PLOT_ID, PlotEvent
 from ..params import Params
 from ..parallel.channels import stack_states
 from ..sources.base import Source
+from ..utils.profiling import span
 from .graph import PACKED, ChannelRunner
 from .session import _cached_runner, _download
 
@@ -100,10 +103,7 @@ class MultiSession:
         self._running = True
         streams = [iter(s.stream(self.config.block_samples))
                    for s in self.sources]
-        n_ch = self.n_channels
-        kf = self.config.frames_per_block
-        h, w = self.config.height, self.config.width
-        ctl = np.zeros((n_ch, 3), np.float64)  # drops; no sync shift, no motion blur
+        ctl = np.zeros((self.n_channels, 3), np.float64)  # drops; no sync shift, no motion blur
         blocks = 0
         frames = 0
         self._hold_runner()
@@ -111,34 +111,15 @@ class MultiSession:
             while self._running:
                 raws = []
                 for c, st in enumerate(streams):
-                    blk = next(st, None)
-                    if blk is None:
-                        return frames  # a source ended: stop the group
-                    raws.append(np.asarray(blk.samples).reshape(-1))
-                    ctl[c, 0] = int(blk.dropped)
-                for c in range(n_ch):
-                    self.samples_dropped_total[c] += int(ctl[c, 0])
-                self.state, out, packed = self._runner.run(self.state, np.stack(raws), ctl)
+                    with span("tsdr/source"):
+                        blk = next(st, None)
+                        if blk is None:
+                            return frames  # a source ended: stop the group
+                        raws.append(np.asarray(blk.samples).reshape(-1))
+                        ctl[c, 0] = int(blk.dropped)
+                with span("tsdr/dispatch"):
+                    frames += self._dispatch(raws, ctl)
                 blocks += 1
-                rows = packed.tolist()  # the one fetch of the block
-                slots = [(c, k) for c, row in enumerate(rows) for k in range(kf)
-                         if row[len(PACKED) + k]]
-                got = _download(out.frame.reshape(-1, h, w), [c * kf + k for c, k in slots])
-                for (c, _), frame in zip(slots, got):
-                    self.frames_total[c] += 1
-                    frames += 1
-                    if self.on_frame:
-                        self.on_frame(c, frame)
-                done = [c for c, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
-                if self.on_plot and done:
-                    f_off, f_len = self.config.ac_frame_window
-                    l_off, _ = self.config.ac_line_window
-                    sr = self.config.samplerate
-                    plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1),
-                                      done)
-                    for row, c in zip(plots, done):
-                        self.on_plot(c, PlotEvent(PLOT_ID.FRAME, f_off, row[:f_len], sr))
-                        self.on_plot(c, PlotEvent(PLOT_ID.LINE, l_off, row[f_len:], sr))
                 if max_blocks is not None and blocks >= max_blocks:
                     break
                 if max_frames is not None and frames >= max_frames:
@@ -149,6 +130,40 @@ class MultiSession:
             for s in self.sources:
                 s.stop()
         return frames
+
+    def _dispatch(self, raws: list, ctl: np.ndarray) -> int:
+        """One block of every channel through the runner, the one packed
+        fetch, the valid frames in one download, the completed rounds'
+        plots in another, fanned out to the callbacks; returns the frames
+        emitted."""
+        kf = self.config.frames_per_block
+        h, w = self.config.height, self.config.width
+        for c in range(self.n_channels):
+            self.samples_dropped_total[c] += int(ctl[c, 0])
+        self.state, out, packed = self._runner.run(self.state, raws, ctl)
+        with span("tsdr/fetch"):
+            rows = packed.tolist()  # the one fetch of the block
+        slots = [(c, k) for c, row in enumerate(rows) for k in range(kf)
+                 if row[len(PACKED) + k]]
+        got = _download(out.frame.reshape(-1, h, w), [c * kf + k for c, k in slots])
+        with span("tsdr/fanout"):
+            for (c, _), frame in zip(slots, got):
+                self.frames_total[c] += 1
+                if self.on_frame:
+                    with span("tsdr/callback"):
+                        self.on_frame(c, frame)
+            done = [c for c, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
+            if self.on_plot and done:
+                f_off, f_len = self.config.ac_frame_window
+                l_off, _ = self.config.ac_line_window
+                sr = self.config.samplerate
+                plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1), done)
+                for row, c in zip(plots, done):
+                    with span("tsdr/callback"):
+                        self.on_plot(c, PlotEvent(PLOT_ID.FRAME, f_off, row[:f_len], sr))
+                    with span("tsdr/callback"):
+                        self.on_plot(c, PlotEvent(PLOT_ID.LINE, l_off, row[f_len:], sr))
+        return len(slots)
 
     def start_async(self, **kw) -> None:
         """run(**kw) on a worker thread. Marked running before the thread

@@ -12,7 +12,11 @@ copy of the stacked blocks into the runner, the replay, ONE packed fetch of
 every block's frame-valid flags and small values (plots, meters), then the
 valid frames in one download and the completed rounds' plots in another,
 fanned out to the callbacks in stream order. batch_blocks > 1 costs
-batch_blocks x block latency for the controls.
+batch_blocks x block latency for the controls. Under a profiler the loop
+is spans (utils/profiling.py span): tsdr/source for each block's arrival,
+tsdr/dispatch for each batch, holding the runner's tsdr/upload and
+tsdr/replay, tsdr/fetch, tsdr/download and tsdr/fanout, and tsdr/callback
+around each of the caller's callbacks.
 
 A session holds its runner's graph state while it runs (the runner's state
 is the session's, updated in place); when the run ends it takes its state
@@ -36,7 +40,7 @@ from ..errors import TSDRError, TSDRStatus
 from ..events import PLOT_ID, VALUE_ID, PlotEvent, ValueEvent
 from ..params import DIRECTION, Params
 from ..sources.base import Source
-from ..utils.profiling import IngestMeter, auto_batch_blocks
+from ..utils.profiling import IngestMeter, auto_batch_blocks, span
 from .graph import PACKED, BlockRunner, host_controls
 from .state import (
     StreamState,
@@ -402,44 +406,51 @@ class Session:
         if self._pending_refresh:
             self._apply_refresh_nudge()
 
-    def _dispatch_blocks(self, raws: np.ndarray, dropped) -> int:
-        """One dispatch: the runner's K blocks (each block's drop count in
-        its own slot, the pending sync shift in slot 0 only), then ONE
-        packed fetch, the valid frames in one download, the completed
-        rounds' plots in another, and each block's callbacks in stream
-        order. Returns the frames emitted."""
-        sync = self._pending_sync
-        self._pending_sync = 0
-        self.state, out, packed = self._runner.run(
-            self.state, raws, host_controls(dropped, sync, self._motionblur))
-        rows = packed.tolist()  # the one fetch of the batch
-        kf = self.config.frames_per_block
-        first_flag = len(PACKED)
-        slots = [(b, j) for b, row in enumerate(rows) for j in range(kf) if row[first_flag + j]]
-        frames = _download(out.frame.reshape(-1, self.config.height, self.config.width),
-                           [b * kf + j for b, j in slots])
-        rounds = [b for b, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
-        plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1), rounds) \
-            if rounds else []
-        fw = out.ac_frame_plot.shape[1]
-        got_frames = iter(frames)
-        got_plots = iter(plots)
-        total = 0
-        for b, row in enumerate(rows):
-            mine = [next(got_frames) for bj in slots if bj[0] == b]
-            plot = next(got_plots) if b in rounds else None
-            got = self._dispatch(dict(zip(PACKED, row)), mine,
-                                 None if plot is None else (plot[:fw], plot[fw:]))
-            total += got
-            self.meter.update(self.config.block_samples, got)
-        return total
+    def _dispatch_blocks(self, raws, dropped) -> int:
+        """One dispatch (a tsdr/dispatch span): the runner's K blocks (a
+        list of blocks or one [K, 2n] array; each block's drop count in its
+        own slot, the pending sync shift in slot 0 only), then ONE packed
+        fetch, the valid frames in one download, the completed rounds'
+        plots in another, and each block's callbacks in stream order.
+        Returns the frames emitted."""
+        with span("tsdr/dispatch"):
+            sync = self._pending_sync
+            self._pending_sync = 0
+            self.state, out, packed = self._runner.run(
+                self.state, raws, host_controls(dropped, sync, self._motionblur))
+            with span("tsdr/fetch"):
+                rows = packed.tolist()  # the one fetch of the batch
+            kf = self.config.frames_per_block
+            first_flag = len(PACKED)
+            slots = [(b, j) for b, row in enumerate(rows) for j in range(kf)
+                     if row[first_flag + j]]
+            frames = _download(out.frame.reshape(-1, self.config.height, self.config.width),
+                               [b * kf + j for b, j in slots])
+            rounds = [b for b, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
+            plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1),
+                              rounds) if rounds else []
+            fw = out.ac_frame_plot.shape[1]
+            got_frames = iter(frames)
+            got_plots = iter(plots)
+            total = 0
+            with span("tsdr/fanout"):
+                for b, row in enumerate(rows):
+                    mine = [next(got_frames) for bj in slots if bj[0] == b]
+                    plot = next(got_plots) if b in rounds else None
+                    got = self._dispatch(dict(zip(PACKED, row)), mine,
+                                         None if plot is None else (plot[:fw], plot[fw:]))
+                    total += got
+                    self.meter.update(self.config.block_samples, got)
+            return total
 
     def run(self, max_blocks: Optional[int] = None, max_frames: Optional[int] = None):
         """Synchronous loop (blocking like tsdr_readasync, TSDRLibrary.c:515).
         Returns the number of frames emitted. The limits are tested after
         each dispatch, so a batched session overshoots max_blocks to a whole
         batch; a trailing partial batch at the end of the stream is not
-        dispatched."""
+        dispatched. Each block's arrival (the source's next(), the controls
+        applied as it arrives) is a tsdr/source span; with the dispatches'
+        spans they tile the loop."""
         if self.params.superresolution:
             return self._run_superres(max_blocks, max_frames)
         self._running = True
@@ -449,20 +460,22 @@ class Session:
         pending_dropped: list = []
         try:
             self._hold_runner()
-            for blk in self.source.stream(self.config.block_samples):
-                if not self._running:
-                    break
-                self._apply_pending_controls()
-                # each block's drop count rides at its own slot so
-                # compensation fires at the drop's true stream position
-                pending_raws.append(np.asarray(blk.samples).reshape(-1))
-                pending_dropped.append(blk.dropped)
-                self.samples_dropped_total += blk.dropped
+            blks = iter(self.source.stream(self.config.block_samples))
+            while True:
+                with span("tsdr/source"):
+                    blk = next(blks, None)
+                    if blk is None or not self._running:
+                        break
+                    self._apply_pending_controls()
+                    # each block's drop count rides at its own slot so
+                    # compensation fires at the drop's true stream position
+                    pending_raws.append(np.asarray(blk.samples).reshape(-1))
+                    pending_dropped.append(blk.dropped)
+                    self.samples_dropped_total += blk.dropped
                 if len(pending_raws) < self.batch_blocks:
                     continue
-                # batch 1 uploads the block as it is; a batch, one stacked copy
-                raws = pending_raws[0][None] if self.batch_blocks == 1 else np.stack(pending_raws)
-                dropped = pending_dropped
+                # the runner uploads one block as it is; a batch, one stacked copy
+                raws, dropped = pending_raws, pending_dropped
                 pending_raws, pending_dropped = [], []
                 frames += self._dispatch_blocks(raws, dropped)
                 blocks += len(dropped)
@@ -512,24 +525,28 @@ class Session:
         try:
             self._hold_runner()
             # hop gathering happens at the source's native block size
-            for blk in self.source.stream(n):
-                if not self._running:
-                    break
-                self._apply_pending_controls()
-                self.samples_dropped_total += blk.dropped
-                f = _normalize_host(np.asarray(blk.samples))
-                iq = (f[0::2] + 1j * f[1::2]).astype(np.complex64)
-                out = sb.feed(iq, blk.dropped)
-                if out is None:
-                    continue
-                carry = np.concatenate([carry, out]) if carry.size else out
+            blks = iter(self.source.stream(n))
+            while True:
+                with span("tsdr/source"):
+                    blk = next(blks, None)
+                    if blk is None or not self._running:
+                        break
+                    self._apply_pending_controls()
+                    self.samples_dropped_total += blk.dropped
+                    f = _normalize_host(np.asarray(blk.samples))
+                    iq = (f[0::2] + 1j * f[1::2]).astype(np.complex64)
+                    out = sb.feed(iq, blk.dropped)
+                    if out is None:
+                        continue
+                    carry = np.concatenate([carry, out]) if carry.size else out
                 # whole batches of the stitched stream go through the steps
                 bb = self.batch_blocks
                 while carry.size >= bb * n and self._running:
-                    batch, carry = carry[: bb * n], carry[bb * n:]
-                    inter = np.empty(2 * bb * n, np.float32)
-                    inter[0::2] = batch.real
-                    inter[1::2] = batch.imag
+                    with span("tsdr/source"):  # the stitched stream's blocks
+                        batch, carry = carry[: bb * n], carry[bb * n:]
+                        inter = np.empty(2 * bb * n, np.float32)
+                        inter[0::2] = batch.real
+                        inter[1::2] = batch.imag
                     frames += self._dispatch_blocks(inter.reshape(bb, 2 * n), [0] * bb)
                     blocks += bb
                     if max_blocks is not None and blocks >= max_blocks:
@@ -569,7 +586,8 @@ class Session:
 
     def _emit_value(self, ev: ValueEvent):
         if self.callbacks.on_value:
-            self.callbacks.on_value(ev)
+            with span("tsdr/callback"):
+                self.callbacks.on_value(ev)
 
     def _dispatch(self, vals: dict, frames: list, plots) -> int:
         """One block's fetched values, downloaded frames and plots (frame
@@ -583,7 +601,8 @@ class Session:
                 self._emit_value(ValueEvent(VALUE_ID.PLL_FRAMERATE, rr, 0))
         for fr in frames:
             if self.callbacks.on_frame:
-                self.callbacks.on_frame(fr)
+                with span("tsdr/callback"):
+                    self.callbacks.on_frame(fr)
             # reference cadence quirk (dsp.c:231-235 `runs++ > 5`): first
             # report on frame 7, then every 7 frames
             if self._agruns > AUTOGAIN_REPORT_EVERY_FRAMES:
@@ -602,19 +621,22 @@ class Session:
             self._last_plots = plots
             if self.callbacks.on_plot:
                 for p in plots:
-                    self.callbacks.on_plot(p)
+                    with span("tsdr/callback"):
+                        self.callbacks.on_plot(p)
             self._emit_value(ValueEvent(VALUE_ID.AUTOCORRECT_FRAMES_COUNT, 0,
                                         int(vals["ac_calls"])))
         return len(frames)
 
 
 def _download(stack: torch.Tensor, rows: list) -> list:
-    """Rows of a stacked tensor as numpy arrays, in one copy to the host: a
-    run of consecutive rows as a slice, others gathered first."""
+    """Rows of a stacked tensor as numpy arrays, in one copy to the host (a
+    tsdr/download span): a run of consecutive rows as a slice, others
+    gathered first."""
     if not rows:
         return []
-    if rows == list(range(rows[0], rows[0] + len(rows))):
-        picked = stack[rows[0]:rows[0] + len(rows)]
-    else:
-        picked = stack[rows]
-    return list(picked.cpu().numpy())
+    with span("tsdr/download"):
+        if rows == list(range(rows[0], rows[0] + len(rows))):
+            picked = stack[rows[0]:rows[0] + len(rows)]
+        else:
+            picked = stack[rows]
+        return list(picked.cpu().numpy())

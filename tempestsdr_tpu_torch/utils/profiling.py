@@ -4,6 +4,8 @@ The reference's only instrumentation is a GUI FPS overlay
 (ImageVisualizer.java:141-154) and an unthrottled-replay compile flag. Here:
   - profile_trace: context manager around torch.profiler that writes a
     Chrome trace of the run (host calls, and kernels and copies on a card);
+  - span: the program's own host spans (tsdr/...) in that trace, on the
+    clock of its device events, and one check when no profiler records;
   - measure_dispatch_floor / auto_batch_blocks: the per-dispatch cost of the
     device and the session batch size it asks for; measure_replay_floor, a
     one-block batch of the session's own (a graph replay and its fetch);
@@ -38,6 +40,29 @@ def profile_trace(logdir: str):
         yield prof
     prof.export_chrome_trace(
         os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# What span() returns when no profiler records on the calling thread: one
+# object, reentrant, so that a span costs one check and no allocation.
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A host span of the program's loop, as a context manager: a
+    torch.profiler.record_function(name) while a profiler records on the
+    calling thread (a profiler records the spans of the thread that started
+    it), else one shared no-op context. The profiler keeps the spans in
+    memory and exports them as user_annotation events on the timeline of
+    the card's kernels and copies (profile_trace, portbench/tracing.py).
+
+    The session's spans tile its loop: each iteration lies inside a
+    tsdr/source span (a block's arrival) or a tsdr/dispatch span (one
+    runner call and all it leads to: tsdr/upload, tsdr/replay, tsdr/fetch,
+    tsdr/download, tsdr/fanout, and tsdr/callback around the caller's
+    callbacks). tsdr/capture marks a graph's capture."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 _FLOOR_CACHE: dict = {}
