@@ -155,6 +155,14 @@
    live run has a wall-clock limit of its own. `chip_smoke.py
    --profiled-fault` is the test of the open fault of ROADMAP Queue 3:
    this run, then config 5's float32 graph replayed under the profiler;
+9d. the downloads into pinned memory (phase 13), at 64 MS/s (Session,
+   one 8.5 MB frame) and config 5 (MultiSession, about 49 MB of frames a
+   block): every row a session downloads bit for bit the stack's .cpu();
+   the frames kept from 4 blocks unchanged after 8 more; the pinned hit
+   share over a steady stretch and the pinned host memory held; ms a block
+   of the session and of its downloads, pinned against the pageable path
+   it replaced, in turns; one block's download alone on an idle card,
+   pinned against pageable;
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -4374,6 +4382,154 @@ KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
 }
 
 
+# ---- phase 13: the downloads into pinned memory -----------------------------
+
+
+def _pageable_download(stack, rows):
+    """The download as it was before pinned memory: the rows through .cpu()
+    into a fresh pageable array (the A side of pinned_downloads)."""
+    if not rows:
+        return []
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        return list(stack[rows[0]:rows[0] + len(rows)].cpu().numpy())
+    return list(stack[rows].cpu().numpy())
+
+
+def _host_pool():
+    """The caching host allocator's blocks made and the bytes it holds."""
+    st = torch.cuda.host_memory_stats()
+    return {k: st[k] for k in ("num_host_alloc", "allocated_bytes.current",
+                               "active_bytes.current") if k in st}
+
+
+def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
+    """One configuration's pinned downloads: `make(on_frame, on_plot)` a
+    session whose module `mod` names the _download it calls. Every row it
+    downloads bit for bit the stack's .cpu(); the frames kept from its first
+    4 blocks unchanged after 8 more; then steady stretches of steady_blocks
+    that keep nothing, pinned, pageable, pageable, pinned (ms a block of the
+    session and of its downloads, the pinned runs' download_stats); then a
+    stack of `per_block` frames downloaded alone on an idle card, pinned
+    against pageable, in turns. Returns the row it prints."""
+    make(None, None).run(max_blocks=4)  # the capture, the cuFFT plans, the pool's first blocks
+    real, checked = mod._download, [0]
+
+    def checking(stack, rows):
+        got = real(stack, rows)
+        want = stack[rows].cpu().numpy()
+        assert len(got) == len(rows) and all(
+            g.dtype == w.dtype and g.tobytes() == w.tobytes() for g, w in zip(got, want)), name
+        checked[0] += len(got)
+        return got
+
+    kept, clones = [], []
+
+    def keep(values):
+        kept.append(values)
+        clones.append(np.array(values, copy=True))
+
+    mod._download = checking
+    try:
+        sess = make(keep, keep)
+        sess.run(max_blocks=4)
+        first = len(kept)
+        sess.run(max_blocks=8)  # the same session 8 blocks on: its graph rewrites its outputs
+        held_pool = _host_pool()
+    finally:
+        mod._download = real
+    assert first >= 1 and checked[0] >= first, (name, first, checked[0])
+    for i, (a, b) in enumerate(zip(kept, clones)):
+        assert a.tobytes() == b.tobytes(), (name, "a kept row changed", i)
+    held = dict(rows_checked=checked[0], kept_rows=len(kept), kept_from_first_4_blocks=first,
+                kept_bytes=int(sum(k.nbytes for k in kept)), pool_while_held=held_pool)
+    del kept, clones, sess
+
+    turns = []
+    for mode in ("pinned", "pageable", "pageable", "pinned"):
+        mod._download = real if mode == "pinned" else _pageable_download
+        spent = {}
+        undo = _timed(mod, "_download", spent)
+        try:
+            sess = make(lambda *a: None, lambda *a: None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.run(max_blocks=steady_blocks)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            undo()
+            mod._download = real
+        row = dict(mode=mode, ms_a_block=dt * 1e3 / steady_blocks,
+                   download_ms_a_block=spent.get("_download", 0.0) * 1e3 / steady_blocks)
+        if mode == "pinned":
+            st = sess.download_stats
+            assert st.downloads > 0, name
+            row.update(downloads=st.downloads, bytes_a_block=st.bytes / steady_blocks,
+                       fresh_pinned=st.fresh_pinned, pinned_hit_share=st.pinned_hit_share)
+        turns.append(row)
+    assert turns[-1]["pinned_hit_share"] >= 0.9, turns  # every bucket met in the first turn
+
+    stack = torch.randn((per_block + 2, *frame_shape), device=DEV)
+    for rows in (list(range(1, per_block + 1)), [per_block + 1, 0] + list(range(2, per_block))):
+        got = session_mod._download(stack, rows)
+        want = stack[rows].cpu().numpy()
+        assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want)), (name, "alone")
+    rows = list(range(per_block))
+    alone = {"pinned": [], "pageable": []}
+    for _ in range(8):
+        for mode, fn in (("pinned", session_mod._download), ("pageable", _pageable_download)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(stack, rows)
+            alone[mode].append((time.perf_counter() - t0) * 1e3)
+    stats_us = {}
+    for what, fn in (("flat", torch.cuda.host_memory_stats),
+                     ("_pinned_blocks", lambda: session_mod._pinned_blocks(DEV))):
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        stats_us[what] = (time.perf_counter() - t0) * 1e3
+    return dict(config=name, held=held, steady_blocks=steady_blocks, turns=turns,
+                alone_bytes=per_block * int(np.prod(frame_shape)) * 4,
+                alone_ms={m: dict(median=float(np.median(v)), min=min(v), max=max(v))
+                          for m, v in alone.items()},
+                stats_read_us=stats_us, pool_after=_host_pool())
+
+
+def pinned_download_phase(smi):
+    """Phase 13: pinned_downloads at 64 MS/s (Session at batch 1, one
+    frame of 628 x 3397 a valid block) and at config 5 (MultiSession over 8
+    channels, K = 4: up to 32 frames of 628 x 849 a block)."""
+    print("host memory stats keys " + json.dumps(sorted(torch.cuda.host_memory_stats())))
+    g64 = GEOMETRIES["64MS/s"]
+    raster = render_test_pattern(g64.height, g64.width // 2)
+    src64 = ReplayU8(g64, raster, 8, loop=True)
+    warm_compile_step(g64, Params(), raw_dtype=np.uint8, device=DEV)
+
+    def session64(on_frame, on_plot):
+        return Session(g64, Params(), src64, SessionCallbacks(
+            on_frame=on_frame, on_plot=None if on_plot is None else lambda ev: on_plot(ev.values)),
+            device=DEV)
+
+    wide = pinned_downloads("64MS/s Session", session_mod, session64, 1,
+                            (g64.height, g64.width), 64)
+    print("pinned downloads " + json.dumps(dict(card=smi, **wide)))
+    srcs = [ReplayU8(CH5, render_test_pattern(CH5.height, CH5.width // 2 + 8 * c), 6, loop=True)
+            for c in range(N_CH)]
+
+    def multi(on_frame, on_plot):
+        return MultiSession(CH5, Params(), srcs,
+                            on_frame=None if on_frame is None else lambda c, f: on_frame(f),
+                            on_plot=None if on_plot is None else lambda c, ev: on_plot(ev.values),
+                            device=DEV)
+
+    frames_a_block = 23  # 49 MB of 628 x 849 frames, a premade block's mean (PERF.md section 4)
+    many = pinned_downloads("8x16MS/s MultiSession", multisession_mod, multi, frames_a_block,
+                            (CH5.height, CH5.width), 16)
+    print("pinned downloads " + json.dumps(dict(card=smi, **many)))
+    return wide, many
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--first-block" and sys.argv[2] in ("cold", "warm"):
         return first_block(sys.argv[2])
@@ -4448,6 +4604,7 @@ def smoke():
     flag_launches["K1"].update(channel_flags_phase(smi))
     sharded_launches, range_row = sharded_phase(smi)
     live_launches = live_phase(smi, channel_launches.pop("simlive"))
+    pinned_download_phase(smi)
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
     kern = []

@@ -13,10 +13,11 @@ The step runs through a ChannelRunner (stream/graph.py), cached per
 block, as the JAX MultiSession dispatches one jitted block per call; on the
 CPU the same step eagerly. Per block: one stacked upload of the N raw
 blocks into the runner, the replay, ONE packed fetch of [N, PACKED + K]
-(every channel's frame-valid flags and round flag), then the valid frames in
-one download and, where a round completed, those channels' plots in
-another. A session holds its runner while it runs and takes its state back
-in tensors of its own when the run ends. Under a profiler the loop carries
+(every channel's frame-valid flags and round flag), then the valid frames
+and, where a round completed and on_plot is set, those channels' plots,
+copied to the host as Session copies them (stream/session.py
+_download_outputs). A session holds its runner while it runs and takes its
+state back in tensors of its own when the run ends. Under a profiler the loop carries
 Session's spans (stream/session.py): tsdr/source for each channel's block,
 tsdr/dispatch from the drop counts to the end of the fan-out.
 """
@@ -27,7 +28,6 @@ import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-import torch
 
 from ..config import PipelineConfig
 from ..device import resolve_device
@@ -38,7 +38,7 @@ from ..parallel.channels import stack_states
 from ..sources.base import Source
 from ..utils.profiling import span
 from .graph import PACKED, ChannelRunner
-from .session import _cached_runner, _download
+from .session import DownloadStats, _cached_runner, _download, _download_outputs
 
 
 class MultiSession:
@@ -87,6 +87,7 @@ class MultiSession:
         self._thread: Optional[threading.Thread] = None
         self.samples_dropped_total = [0] * self.n_channels
         self.frames_total = [0] * self.n_channels
+        self.download_stats = DownloadStats()
 
     def _hold_runner(self) -> None:
         """Lease the cached runner; another session holding it gets one of
@@ -145,19 +146,20 @@ class MultiSession:
             rows = packed.tolist()  # the one fetch of the block
         slots = [(c, k) for c, row in enumerate(rows) for k in range(kf)
                  if row[len(PACKED) + k]]
-        got = _download(out.frame.reshape(-1, h, w), [c * kf + k for c, k in slots])
+        done = [c for c, row in enumerate(rows)
+                if self.on_plot and row[PACKED.index("ac_plot_valid")]]
+        got, plots = _download_outputs(out, (h, w), [c * kf + k for c, k in slots], done,
+                                       self.download_stats, _download)
         with span("tsdr/fanout"):
             for (c, _), frame in zip(slots, got):
                 self.frames_total[c] += 1
                 if self.on_frame:
                     with span("tsdr/callback"):
                         self.on_frame(c, frame)
-            done = [c for c, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
-            if self.on_plot and done:
+            if done:
                 f_off, f_len = self.config.ac_frame_window
                 l_off, _ = self.config.ac_line_window
                 sr = self.config.samplerate
-                plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1), done)
                 for row, c in zip(plots, done):
                     with span("tsdr/callback"):
                         self.on_plot(c, PlotEvent(PLOT_ID.FRAME, f_off, row[:f_len], sr))

@@ -10,13 +10,14 @@ replays a one-block graph), as the JAX Session scans batch_blocks blocks
 per dispatch; on the CPU the same device step in a loop. Per batch: one
 copy of the stacked blocks into the runner, the replay, ONE packed fetch of
 every block's frame-valid flags and small values (plots, meters), then the
-valid frames in one download and the completed rounds' plots in another,
-fanned out to the callbacks in stream order. batch_blocks > 1 costs
-batch_blocks x block latency for the controls. Under a profiler the loop
-is spans (utils/profiling.py span): tsdr/source for each block's arrival,
-tsdr/dispatch for each batch, holding the runner's tsdr/upload and
-tsdr/replay, tsdr/fetch, tsdr/download and tsdr/fanout, and tsdr/callback
-around each of the caller's callbacks.
+valid frames and the completed rounds' plots copied to the host (on the
+card into pinned memory from torch's caching host allocator, behind one
+wait for the stream), fanned out to the callbacks in stream order.
+batch_blocks > 1 costs batch_blocks x block latency for the controls. Under
+a profiler the loop is spans (utils/profiling.py span): tsdr/source for
+each block's arrival, tsdr/dispatch for each batch, holding the runner's
+tsdr/upload and tsdr/replay, tsdr/fetch, tsdr/download and tsdr/fanout, and
+tsdr/callback around each of the caller's callbacks.
 
 A session holds its runner's graph state while it runs (the runner's state
 is the session's, updated in place); when the run ends it takes its state
@@ -190,6 +191,7 @@ class Session:
         # cumulative source-reported drops (UHD/Mirics samples_dropped
         # semantics, TSDRPlugin.h:49) — observability for overload diagnosis
         self.samples_dropped_total = 0
+        self.download_stats = DownloadStats()
         self.meter = IngestMeter()
 
     def _build_steps(self, params: Params) -> None:
@@ -424,11 +426,10 @@ class Session:
             first_flag = len(PACKED)
             slots = [(b, j) for b, row in enumerate(rows) for j in range(kf)
                      if row[first_flag + j]]
-            frames = _download(out.frame.reshape(-1, self.config.height, self.config.width),
-                               [b * kf + j for b, j in slots])
             rounds = [b for b, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
-            plots = _download(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1),
-                              rounds) if rounds else []
+            frames, plots = _download_outputs(
+                out, (self.config.height, self.config.width), [b * kf + j for b, j in slots],
+                rounds, self.download_stats, _download)
             fw = out.ac_frame_plot.shape[1]
             got_frames = iter(frames)
             got_plots = iter(plots)
@@ -628,15 +629,85 @@ class Session:
         return len(frames)
 
 
+@dataclass
+class DownloadStats:
+    """A session's copies to the host: the downloads (one a stacked copy),
+    their bytes, and the fresh pinned blocks torch's caching host allocator
+    made across them (its allocation count before and after; 0 on the CPU).
+    A download that finds a cached block free is a hit."""
+    downloads: int = 0
+    bytes: int = 0
+    fresh_pinned: int = 0
+
+    @property
+    def pinned_hit_share(self) -> float:
+        return 1.0 - self.fresh_pinned / max(self.downloads, 1)
+
+
+def _pinned_blocks(device: torch.device) -> int:
+    """The pinned blocks torch's caching host allocator has made so far
+    (0 off the card): host_memory_stats()'s allocation count, read from its
+    nested form, which skips the flattening and sorting that cost about
+    35 us a call on an H100's host."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.memory.host_memory_stats_as_nested_dict()["num_host_alloc"]
+
+
+def _wait_for_copies(device: torch.device) -> None:
+    """On the card, wait once for the current stream: every copy queued on
+    it has landed."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _to_host(stack: torch.Tensor, rows: list) -> torch.Tensor:
+    """Queue the copy of rows (at least one) of a stacked tensor into host
+    memory of its own (a run of consecutive rows as a slice, others gathered
+    first): from the card into pinned memory of torch's caching host
+    allocator, not waited for; on the CPU a plain copy."""
+    if rows == list(range(rows[0], rows[0] + len(rows))):
+        picked = stack[rows[0]:rows[0] + len(rows)]
+    else:
+        picked = stack[rows]
+    on_cuda = picked.is_cuda
+    host = torch.empty(picked.shape, dtype=picked.dtype, pin_memory=on_cuda)
+    return host.copy_(picked, non_blocking=on_cuda)
+
+
 def _download(stack: torch.Tensor, rows: list) -> list:
-    """Rows of a stacked tensor as numpy arrays, in one copy to the host (a
-    tsdr/download span): a run of consecutive rows as a slice, others
-    gathered first."""
+    """Rows of a stacked tensor as numpy arrays, in one copy to the host and
+    one wait for the stream, which covers any copy queued before it. The
+    rows are views of a host block of their own, never of the stack: a
+    pinned block goes back to the allocator's cache only once every row of
+    it is dropped, so a caller keeps what it holds across blocks."""
     if not rows:
         return []
+    host = _to_host(stack, rows)
+    _wait_for_copies(stack.device)
+    return list(host.numpy())
+
+
+def _download_outputs(out, frame_shape: tuple, frame_rows: list, plot_rows: list,
+                      stats: DownloadStats, download) -> tuple:
+    """A dispatch's valid frames (through `download`, the caller module's
+    _download, which tools wrap by name) and its completed rounds' plots
+    (each row the frame window, then the line window), in a tsdr/download
+    span and counted in stats. The plots' copy is queued ahead of the
+    frames', so the frames' one wait covers both. Returns (frames, plots),
+    lists of numpy rows."""
+    if not frame_rows and not plot_rows:
+        return [], []
+    device = out.frame.device
     with span("tsdr/download"):
-        if rows == list(range(rows[0], rows[0] + len(rows))):
-            picked = stack[rows[0]:rows[0] + len(rows)]
-        else:
-            picked = stack[rows]
-        return list(picked.cpu().numpy())
+        made = _pinned_blocks(device)
+        plot_host = _to_host(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1),
+                             plot_rows) if plot_rows else None
+        frames = download(out.frame.reshape(-1, *frame_shape), frame_rows)
+        if plot_host is not None and not frame_rows:
+            _wait_for_copies(device)
+        plots = [] if plot_host is None else list(plot_host.numpy())
+        stats.downloads += bool(frame_rows) + bool(plot_rows)
+        stats.bytes += sum(a.nbytes for a in frames) + sum(a.nbytes for a in plots)
+        stats.fresh_pinned += _pinned_blocks(device) - made
+    return frames, plots

@@ -160,9 +160,11 @@ def test_the_guard_catches_host_reads():
 def test_session_fetches_once_per_batch(monkeypatch, batch):
     """Session(batch_blocks=K) reads the device once a batch for its flags
     and small values (one .tolist() of the packed values), then downloads
-    only what completed: the frames with one .cpu() a batch that emitted,
-    the plots with one a batch that completed a round."""
+    only what completed: the frames with one copy to the host a batch that
+    emitted, the plots with one a batch that completed a round, and no
+    .cpu(); download_stats counts the copies."""
     from tempestsdr_tpu_torch.sources.synthetic import SyntheticSource
+    from tempestsdr_tpu_torch.stream import session as session_mod
     from tempestsdr_tpu_torch.stream.session import Session, SessionCallbacks
 
     _, tcfg = _configs(K1_BLOCK)
@@ -178,8 +180,12 @@ def test_session_fetches_once_per_batch(monkeypatch, batch):
         monkeypatch.setattr(torch.Tensor, name,
                             lambda self, *a, _n=name, _r=real, **k: (calls.append(_n),
                                                                       _r(self, *a, **k))[1])
+    real_to_host = session_mod._to_host
+    monkeypatch.setattr(session_mod, "_to_host",
+                        lambda *a: (calls.append("to_host"), real_to_host(*a))[1])
     sess.run(max_blocks=16)
     monkeypatch.undo()
-    assert calls.count("tolist") == 16 // batch
-    assert 1 <= calls.count("cpu") <= 2 * (16 // batch)
+    assert calls.count("tolist") == 16 // batch and calls.count("cpu") == 0
+    assert 1 <= calls.count("to_host") <= 2 * (16 // batch)
+    assert sess.download_stats.downloads == calls.count("to_host")
     assert len(frames) >= 5 and len(plots) >= 2 and int(sess.state.frame_count) == len(frames)

@@ -129,9 +129,11 @@ class _Droppy(Source):
 
 def test_multisession_fetches_and_drops(monkeypatch):
     """Per block one packed fetch (one .tolist() of the runner's [C, PACKED
-    + K] values); on a block where a channel completed a frame, one
-    download of the valid frames; on a block where a round completed, one
-    of those channels' plots. Drops stay per channel."""
+    + K] values) and no other host read; on a block where a channel
+    completed a frame, one copy of the valid frames to the host; on a block
+    where a round completed, one of those channels' plots. download_stats
+    counts those copies. Drops stay per channel."""
+    from tempestsdr_tpu_torch.stream import session as session_mod
     from tempestsdr_tpu_torch.stream.graph import PACKED, ChannelRunner
 
     cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192)
@@ -159,6 +161,9 @@ def test_multisession_fetches_and_drops(monkeypatch):
         return out
 
     monkeypatch.setattr(ChannelRunner, "run", spy)
+    real_to_host = session_mod._to_host
+    monkeypatch.setattr(session_mod, "_to_host",
+                        lambda *a: (calls.append("to_host"), real_to_host(*a))[1])
     total = ms.run(max_blocks=20)
     marks.append(len(calls))
     monkeypatch.undo()
@@ -171,11 +176,38 @@ def test_multisession_fetches_and_drops(monkeypatch):
         block_calls = calls[marks[b]:marks[b + 1]]
         emit = bool(packed[:, len(PACKED):].any())
         done = bool(packed[:, PACKED.index("ac_plot_valid")].any())
-        assert block_calls == ["tolist"] + ["cpu"] * (emit + done), (b, block_calls)
+        assert block_calls == ["tolist"] + ["to_host"] * (emit + done), (b, block_calls)
         emitting += emit
         rounds += done
     assert emitting >= 5 and rounds >= 1
+    assert ms.download_stats.downloads == emitting + rounds
+    assert ms.download_stats.fresh_pinned == 0
 
+
+
+def test_multisession_kept_frames_and_plots_stay_the_callers():
+    """A caller that keeps every channel's frames and plots over the run
+    still holds the bytes it cloned inside the callbacks when the run ends
+    (tests/test_torch_session.py's case for Session); download_stats counts
+    their bytes, with no pinned block on the CPU."""
+    cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192)
+    kept, clones = [], []
+
+    def keep(values):
+        kept.append(values)
+        clones.append(np.array(values, copy=True))
+
+    ms = MultiSession(cfg, Params(), _sources(SyntheticSource),
+                      on_frame=lambda c, f: keep(f), on_plot=lambda c, ev: keep(ev.values),
+                      device="cpu")
+    ms.run(max_blocks=16)
+    frames = [k for k in kept if k.ndim == 2]
+    assert len(frames) >= 4 * C and len(kept) > len(frames)
+    for i, (a, b) in enumerate(zip(kept, clones)):
+        assert a.tobytes() == b.tobytes(), i
+    stats = ms.download_stats
+    assert stats.downloads >= 2 and stats.bytes == sum(k.nbytes for k in kept)
+    assert stats.fresh_pinned == 0 and stats.pinned_hit_share == 1.0
 
 def test_multisession_async_start_stop():
     cfg = PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH, block_samples=8192,

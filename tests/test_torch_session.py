@@ -446,3 +446,54 @@ def test_dispatch_floor_meter_and_trace(tmp_path):
         sess.run(max_blocks=3)
     files = list((tmp_path / "trace").iterdir())
     assert len(files) == 1 and files[0].stat().st_size > 1000
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_kept_frames_and_plots_stay_the_callers(monkeypatch, batch):
+    """A caller that keeps every frame and plot it is handed still holds,
+    after the run, the bytes it cloned inside the callback: the rows are
+    host memory of their own, never a view of the step's outputs, which the
+    next block rewrites. download_stats counts each copy to the host and its
+    bytes, with no pinned block on the CPU."""
+    kept, clones = [], []
+
+    def keep(values):
+        kept.append(values)
+        clones.append(np.array(values, copy=True))
+
+    cbs = tsession.SessionCallbacks(on_frame=keep, on_plot=lambda ev: keep(ev.values))
+    sess = tsession.Session(PipelineConfig(samplerate=SR, height=LINES, refreshrate=REFRESH,
+                                           block_samples=BLOCK),
+                            Params(), FiniteDroppy(n_blocks=24), cbs, batch_blocks=batch,
+                            device="cpu")
+    copies = []
+    real_to_host = tsession._to_host
+    monkeypatch.setattr(tsession, "_to_host",
+                        lambda *a: (copies.append(1), real_to_host(*a))[1])
+    sess.run()
+    frames = [k for k in kept if k.ndim == 2]
+    assert len(frames) >= 4 and len(kept) - len(frames) >= 4  # two plots a round
+    for i, (a, b) in enumerate(zip(kept, clones)):
+        assert a.tobytes() == b.tobytes(), i
+    stats = sess.download_stats
+    assert stats.downloads == len(copies) >= 2
+    assert stats.bytes == sum(k.nbytes for k in kept)
+    assert stats.fresh_pinned == 0 and stats.pinned_hit_share == 1.0
+
+
+@pytest.mark.parametrize("rows", [[1, 2, 3], [4, 0, 2], [], "plots"],
+                         ids=["consecutive", "gathered", "empty", "plot-rows"])
+def test_download_rows_are_the_stacks_and_its_own(rows):
+    """_download's rows equal stack[rows] bit for bit, in its dtype, and a
+    later write to the stack leaves them as they were."""
+    gen = torch.Generator().manual_seed(5)
+    if rows == "plots":  # the plots' stack: [blocks, frame window + line window]
+        stack, rows = torch.randn(4, 37, generator=gen, dtype=torch.float32), [0, 3]
+    else:
+        stack = torch.randn(6, 5, 7, generator=gen, dtype=torch.float32)
+    want = stack[rows].numpy().copy()
+    got = tsession._download(stack, rows)
+    assert len(got) == len(rows)
+    assert all(g.dtype == want.dtype and g.tobytes() == w.tobytes() for g, w in zip(got, want))
+    stack.add_(1.0)
+    assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want))
