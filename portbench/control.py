@@ -6,6 +6,7 @@ correct; the upper readings of the limits are its numbers.
     python3 portbench/control.py --workload CELL --seeds 1,2,3 [--device cuda]
 
 For each seed it makes the cell's stream, runs the low-precision reference
+(the configuration's own reference module, each channel at its own mode)
 over the first blocks of every channel as a run's window would (the start
 stretch from the initial state, further stretches at fixed blocks from the
 control's own state, snapshots before and after each, and its state after
@@ -24,21 +25,26 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def control_numbers(cfg: dict, seed: int, device: str, starts=None) -> dict:
+def control_numbers(cfg: dict, seed: int, device: str, starts=None, reference=None) -> dict:
+    """reference: the configuration's reference module (loaded by its name
+    where None)."""
+    from portbench import manifest
     from portbench.gen import emanation as em
     from portbench.reference import check as ck
     from portbench.reference.geometry import Geometry
-    from portbench.reference.step import Reference
 
-    g = Geometry.of(cfg)
+    if reference is None:
+        reference = manifest.load_reference(manifest.HERE, cfg.get("reference", "step"))
     n, n_ch, m = cfg["block_samples"], cfg["channels"], cfg["check"]["blocks"]
     from_start = cfg["check"]["from_start"]
-    period = em.period_samples(cfg["samplerate"], cfg["refreshrate"], cfg["period_frames"])
+    geometries = [Geometry.of(cfg, c) for c in range(n_ch)]
+    periods = [em.channel_period_samples(cfg, c) for c in range(n_ch)]
     loops = [em.looped(em.channel_period(cfg, c, seed), n) for c in range(n_ch)]
     starts = starts or [0] + [m * (3 * j + 2) for j in range(cfg["check"]["stretches"])]
-    low = Reference(g, device, "bfloat16", cfg["params"])
+    lows = {g.key: reference.Reference(g, device, "bfloat16", cfg["params"]) for g in geometries}
     frames, plots, stretches = {}, {}, []
     for c in range(n_ch):
+        low, period = lows[geometries[c].key], periods[c]
         st = low.init_state()
         k = 0
         mine = []
@@ -62,10 +68,10 @@ def control_numbers(cfg: dict, seed: int, device: str, starts=None) -> dict:
         stretches += mine
 
     def raw_for(channel, k):
-        return em.block_at(loops[channel], period, n, k), 0
+        return em.block_at(loops[channel], periods[channel], n, k), 0
 
-    return ck.check(g, stretches, raw_for, frames, plots, cfg["raw_format"], device=device,
-                    params=cfg["params"])
+    return ck.check(geometries, stretches, raw_for, frames, plots, cfg["raw_format"],
+                    device=device, params=cfg["params"], reference=reference)
 
 
 def main(argv=None) -> int:
@@ -80,7 +86,7 @@ def main(argv=None) -> int:
 
     cell = manifest.Cell(ROOT, manifest.load(ROOT), args.workload)
     for seed in (int(s) for s in args.seeds.split(",")):
-        numbers = control_numbers(cell.config, seed, args.device)
+        numbers = control_numbers(cell.config, seed, args.device, reference=cell.reference)
         ok, _ = ck.verdict(numbers, cell.config["limits"])
         print(json.dumps(dict(workload=args.workload, seed=seed, correct=ok, **numbers)),
               flush=True)

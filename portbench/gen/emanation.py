@@ -13,6 +13,8 @@ period_frames * fs / refresh is a whole number of samples (3 frames at
 60 Hz: 3,200,000 samples at 64 MS/s, 800,000 at 16 MS/s). Noise is drawn
 from the seed once per period, so the period itself repeats exactly.
 
+Each channel has its own mode where the configuration gives one
+(`modes.py`): its refresh rate sets its period, its raster its pixels.
 Everything here is numpy on the host and a function of (config, seed).
 """
 
@@ -21,6 +23,8 @@ from __future__ import annotations
 from fractions import Fraction
 
 import numpy as np
+
+from ..modes import channel_mode
 
 
 def period_samples(samplerate, refreshrate, period_frames: int) -> int:
@@ -71,16 +75,21 @@ def quantize(iq: np.ndarray, raw_format: str) -> np.ndarray:
     raise ValueError(f"unknown raw format {raw_format!r}")
 
 
+def channel_period_samples(cfg: dict, channel: int) -> int:
+    """Samples in one period of channel `channel`'s stream."""
+    return period_samples(cfg["samplerate"], channel_mode(cfg, channel)["refreshrate"],
+                          cfg["period_frames"])
+
+
 def channel_period(cfg: dict, channel: int, seed: int) -> np.ndarray:
     """One period of channel `channel`'s interleaved raw IQ, [2 * period]."""
     em = cfg["emanation"]
-    lines = cfg["raster"]["lines"]
-    total_width = cfg["raster"]["total_width"][channel]
-    active_w, active_h = cfg["raster"]["active"]
-    period = period_samples(cfg["samplerate"], cfg["refreshrate"], cfg["period_frames"])
-    raster = render_raster(lines, total_width, active_w, active_h,
+    mode = channel_mode(cfg, channel)
+    active_w, active_h = mode["active"]
+    period = channel_period_samples(cfg, channel)
+    raster = render_raster(mode["lines"], mode["total_width"], active_w, active_h,
                            seed=(seed * 1000003 + 17 * channel) % (1 << 63))
-    pos = raster_positions(cfg["samplerate"], cfg["refreshrate"], raster.size, period)
+    pos = raster_positions(cfg["samplerate"], mode["refreshrate"], raster.size, period)
     v = raster.reshape(-1)[pos] * np.float32(em["gain"]) + np.float32(em["dc"])
     rng = np.random.default_rng([seed, channel])
     noise = rng.normal(scale=em["noise"], size=(period, 2)).astype(np.float32)

@@ -2,11 +2,25 @@
 the check against the reference, and the result.
 
 The harness makes what every feed shares: the cell's streams from the seed
-(`gen/emanation.py`), the receiver's configuration, the window and the
-recorder of frames and plots. The traffic file's `driver` names the module
-that feeds the receiver through the window, `traffic/<driver>.py`, found
-by name as the metric readers are. Its `drive(ctx)` warms up, runs the
-timed receiver until the window ends and returns:
+(`gen/emanation.py`), every channel's receiver configuration, the window
+and the recorder of frames and plots. The traffic file's `driver` names the
+module that feeds the receiver through the window, `traffic/<driver>.py`,
+found by name as the metric readers are. The configuration's `session`
+names the module that builds the receiver, `sessions/<session>.py`
+(`default.py`: `Session` for one channel, `MultiSession` for several). The
+driver reads from `ctx`:
+
+  cfg, traffic, seed, seconds, device, n (block samples), n_ch, params
+  channel_pcs, channel_periods   each channel's PipelineConfig and period
+  pc, period     the same, where every channel has one mode; else None
+  periods, loops each channel's period of raw IQ, and its looped stream
+                 (gen/emanation.py)
+  window, recorder, clock, sync, t_process
+  make_session(sources, timed)   the session module's make; the timed
+                                 receiver goes in ctx.timed
+
+Its `drive(ctx)` warms up, runs the timed receiver until the window ends
+and returns:
 
   setup_s    process start to the first timed block
   t_end      the clock when the receiver was done (after a device sync)
@@ -27,12 +41,12 @@ import types
 
 import numpy as np
 
-from . import tracing
+from . import modes, tracing
 from .gen import emanation as em
+from .manifest import FORBIDDEN
 from .reference import check as ck
 from .reference.geometry import Geometry
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "tempestsdr_tpu")
 clock = time.monotonic
 
 
@@ -50,7 +64,7 @@ class Window:
     times drawn from the seed (the first at block 0), takes the receiver's
     state before and after each and once after the first `from_start`
     blocks (or at the window's end, where that comes first), and starts and
-    stops the traced stretch."""
+    stops the traced stretch. get_state() -> each channel's state leaves."""
 
     def __init__(self, seconds: float, seed: int, cfg: dict, traffic: dict, trace: bool,
                  get_state):
@@ -81,7 +95,7 @@ class Window:
 
     def _snapshot(self):
         with tracing.span("portbench/snapshot", self.profiling):
-            return [x.clone() for x in self.get_state()]
+            return [[x.clone() for x in leaves] for leaves in self.get_state()]
 
     def _close_stretch(self, k: int):
         s = self.open
@@ -171,21 +185,26 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
     from tempestsdr_tpu_torch.params import Params
 
     n, n_ch = cfg["block_samples"], cfg["channels"]
-    period = em.period_samples(cfg["samplerate"], cfg["refreshrate"], cfg["period_frames"])
-    periods = [em.channel_period(cfg, c, seed) for c in range(n_ch)]
-    pc = PipelineConfig(samplerate=float(cfg["samplerate"]), height=cfg["height"],
-                        refreshrate=float(cfg["refreshrate"]), block_samples=n)
+    channels = range(n_ch)
+    channel_periods = [em.channel_period_samples(cfg, c) for c in channels]
+    receiver_modes = modes.receiver_modes(cfg)
+    pcs = {mode: PipelineConfig(samplerate=float(cfg["samplerate"]), height=mode[0],
+                                refreshrate=float(mode[1]), block_samples=n)
+           for mode in set(receiver_modes)}
+    channel_pcs = [pcs[mode] for mode in receiver_modes]
+    one_mode = len(pcs) == 1
+    periods = [em.channel_period(cfg, c, seed) for c in channels]
     params = Params(**cfg["params"])
     ctx = types.SimpleNamespace(
         cfg=cfg, traffic=cell.traffic, seed=seed, seconds=seconds, device=device, n=n,
-        n_ch=n_ch, period=period, periods=periods, loops=[em.looped(p, n) for p in periods],
-        pc=pc, params=params, t_process=t_process, clock=clock, sync=lambda: _sync(device),
-        timed=None)
+        n_ch=n_ch, channel_periods=channel_periods, channel_pcs=channel_pcs,
+        period=channel_periods[0] if one_mode else None,
+        pc=channel_pcs[0] if one_mode else None, periods=periods,
+        loops=[em.looped(p, n) for p in periods], params=params, t_process=t_process,
+        clock=clock, sync=lambda: _sync(device), timed=None)
 
     def get_state():
-        from tempestsdr_tpu_torch.stream.state import state_leaves
-
-        return state_leaves(ctx.timed.state)
+        return [cell.session.channel_leaves(ctx.timed, c) for c in channels]
 
     window = Window(seconds, seed, cfg, cell.traffic, trace, get_state)
     rec = Recorder(window)
@@ -193,20 +212,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         window.prof.warm_up()
 
     def make_session(sources, timed: bool):
-        """Session for one channel, MultiSession for several; the timed one
-        reports to the recorder."""
-        from tempestsdr_tpu_torch.stream.multisession import MultiSession
-        from tempestsdr_tpu_torch.stream.session import Session, SessionCallbacks
-
-        on_frame = rec.frame if timed else None
-        on_plot = rec.plot if timed else None
-        if n_ch == 1:
-            return Session(pc, params, sources[0], SessionCallbacks(
-                on_frame=None if on_frame is None else (lambda f: on_frame(0, f)),
-                on_plot=None if on_plot is None else (lambda ev: on_plot(0, ev))),
-                batch_blocks=cfg["batch_blocks"], device=device)
-        return MultiSession(pc, params, sources, on_frame=on_frame, on_plot=on_plot,
-                            cond_mode=cfg["cond_mode"], device=device)
+        return cell.session.make(ctx, sources, timed)
 
     ctx.window, ctx.recorder, ctx.make_session = window, rec, make_session
     out = cell.driver.drive(ctx)
@@ -216,20 +222,22 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
 
     mem_peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
     ctx.timed = None
+    geometries = [Geometry.of(cfg, c) for c in channels]
     return dict(blocks=window.blocks, window_s=out["t_end"] - window.t0,
                 setup_s=out["setup_s"], error=out["error"], attempted=out["attempted"],
                 failed=out["failed"], metrics=out["metrics"], raw_for=out["raw_for"],
-                mem_peak=mem_peak, window=window, recorder=rec, geometry=Geometry.of(cfg),
-                n_channels=n_ch)
+                mem_peak=mem_peak, window=window, recorder=rec, geometry=geometries[0],
+                geometries=geometries, reference=cell.reference, n_channels=n_ch)
 
 
 def check_run(res: dict, cfg: dict, device: str) -> dict:
     """The check over the run's stretches and its state after the first
-    `from_start` blocks (see reference/check.py)."""
+    `from_start` blocks (see reference/check.py), each channel at its own
+    geometry against the configuration's reference."""
     w, rec, n_ch = res["window"], res["recorder"], res["n_channels"]
 
-    def rows(leaves, c):  # channel c's part of a state: its rows where stacked
-        return leaves if leaves is None or n_ch == 1 else [x[c] for x in leaves]
+    def rows(leaves, c):  # channel c's part of a snapshot
+        return None if leaves is None else leaves[c]
 
     stretches = []
     for s in w.stretches:
@@ -242,5 +250,6 @@ def check_run(res: dict, cfg: dict, device: str) -> dict:
             stretches.append(ck.Stretch(c, s["start"], s["blocks"], rows(s["before"], c),
                                         rows(s["after"], c), anchor))
     plots = {key: (v[0], v[1]) for key, v in rec.plots.items()}
-    return ck.check(res["geometry"], stretches, res["raw_for"], rec.frames, plots,
-                    cfg["raw_format"], device=device, params=cfg["params"])
+    return ck.check(res["geometries"], stretches, res["raw_for"], rec.frames, plots,
+                    cfg["raw_format"], device=device, params=cfg["params"],
+                    reference=res["reference"])

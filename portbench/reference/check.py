@@ -25,8 +25,13 @@ The numbers, each with its limit from the configuration file:
   long_state_err  the same gap at block `from_start`, both sides from their
                   own initial state
   mismatches      integer leaves that differ at a stretch's end or at block
-                  `from_start`, and blocks whose frame or plot count differs
-                  (limit 0)
+                  `from_start`, blocks whose frame or plot count differs, and
+                  frames of another shape than the reference's (limit 0)
+
+Each channel is checked at its own geometry, with one Reference for each
+distinct geometry, made from the reference module the configuration
+names (`step.py` where it names none): any module with step.py's
+`Reference`, `LEAVES`, `ARRAYS` and `INTEGERS`.
 """
 
 from __future__ import annotations
@@ -35,8 +40,6 @@ import math
 
 import numpy as np
 import torch
-
-from .step import ARRAYS, INTEGERS, LEAVES, Reference
 
 NAMES = ("frame_err", "plot_err", "state_err", "long_state_err", "mismatches")
 
@@ -50,21 +53,21 @@ def _rel(p, r) -> float:
     return (p - r).abs().max().item() / scale if r.numel() else 0.0
 
 
-def state_gaps(ref_st: dict, prog: dict) -> tuple[float, int]:
+def state_gaps(ref_st: dict, prog: dict, reference) -> tuple[float, int]:
     """(largest relative gap over the float leaves, integer leaves that
     differ) between the reference's state and the receiver's, both as
-    Reference state dicts."""
+    Reference state dicts of the `reference` module."""
     worst, wrong = 0.0, 0
-    for name in LEAVES:
+    for name in reference.LEAVES:
         r, p = ref_st[name], prog[name]
-        if name in INTEGERS:
+        if name in reference.INTEGERS:
             wrong += int(r != p)
             continue
         if name == "framebuf":
             r, p = r[:ref_st["fill"]], p[:ref_st["fill"]]
         elif name == "ac_buf":
             r, p = r[:ref_st["ac_fill"]], p[:ref_st["ac_fill"]]
-        if name in ARRAYS:
+        if name in reference.ARRAYS:
             worst = max(worst, _rel(p, r))
         else:
             worst = max(worst, abs(float(p) - float(r)) / max(abs(float(r)), 1e-30))
@@ -83,17 +86,27 @@ class Stretch:
         self.before, self.after, self.anchor = before, after, anchor
 
 
-def check(geometry, stretches, raw_for, frames: dict, plots: dict, raw_format: str,
-          device="cpu", params: dict | None = None) -> dict:
+def check(geometries, stretches, raw_for, frames: dict, plots: dict, raw_format: str,
+          device="cpu", params: dict | None = None, *, reference) -> dict:
     """Run the reference over every stretch and return the numbers.
 
+    geometries: channel c's Geometry at [c];
     raw_for(channel, k) -> (raw block as numpy, dropped samples before it);
     frames[(k, channel)] -> the receiver's frames of block k, in order;
-    plots[(k, channel)] -> its (frame window, line window) plot of block k."""
-    ref = Reference(geometry, device, params=params)
+    plots[(k, channel)] -> its (frame window, line window) plot of block k;
+    reference: the module of the plain receiver."""
+    refs = {}
+
+    def reference_for(channel):
+        g = geometries[channel]
+        if g.key not in refs:
+            refs[g.key] = reference.Reference(g, device, params=params)
+        return refs[g.key]
+
     out = dict(frame_err=0.0, plot_err=0.0, state_err=0.0, long_state_err=0.0, mismatches=0,
                frames=0, plots=0, stretches=0, blocks=0, from_start=0, long_mismatches=0)
     for s in stretches:
+        ref = reference_for(s.channel)
         st = ref.init_state() if s.before is None else ref.from_leaves(s.before)
         for k in range(s.start, s.start + s.blocks):
             raw, dropped = raw_for(s.channel, k)
@@ -101,7 +114,11 @@ def check(geometry, stretches, raw_for, frames: dict, plots: dict, raw_format: s
             got = frames.get((k, s.channel), [])
             out["mismatches"] += int(len(got) != len(ref_frames))
             for p, r in zip(got, ref_frames):
-                gap = (torch.from_numpy(np.asarray(p)).to(r.device, torch.float64) - r).abs()
+                p = torch.from_numpy(np.asarray(p))
+                if p.shape != r.shape:  # folded at another mode
+                    out["mismatches"] += 1
+                    continue
+                gap = (p.to(r.device, torch.float64) - r).abs()
                 out["frame_err"] = max(out["frame_err"], gap.max().item())
                 out["frames"] += 1
             got_plot = plots.get((k, s.channel))
@@ -112,7 +129,7 @@ def check(geometry, stretches, raw_for, frames: dict, plots: dict, raw_format: s
                 out["plots"] += 1
             out["blocks"] += 1
         if s.after is not None:
-            worst, wrong = state_gaps(st, ref.from_leaves(s.after))
+            worst, wrong = state_gaps(st, ref.from_leaves(s.after), reference)
             out["state_err"] = max(out["state_err"], worst)
             out["mismatches"] += wrong
         out["stretches"] += 1
@@ -124,7 +141,7 @@ def check(geometry, stretches, raw_for, frames: dict, plots: dict, raw_format: s
             for k in range(s.start + s.blocks, k_end):
                 raw, dropped = raw_for(s.channel, k)
                 st, _, _ = ref.step(st, raw, raw_format, dropped)
-            worst, wrong = state_gaps(st, ref.from_leaves(leaves))
+            worst, wrong = state_gaps(st, ref.from_leaves(leaves), reference)
             out["long_state_err"] = max(out["long_state_err"], worst)
             out["mismatches"] += wrong
             out["long_mismatches"] += wrong

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import math
 
+from ..modes import channel_mode
+
 FRAC_BITS = 40  # fixed-point bits of the resampler's phase
 PLL_HEADROOM_FRAC = 0.002  # the PLL's refresh-rate delta is clamped to this share
 NORMALISATION_LOWPASS_COEFF = 0.1  # TSDRLibrary.c:37
@@ -48,6 +50,13 @@ class Geometry:
                                                                   (k + 1) * self.fp)
         self.pixels_per_sample = pixelrate / self.samplerate
 
+    @property
+    def key(self) -> tuple:
+        """What the sizes follow from: equal keys, equal geometries."""
+        return self.samplerate, self.height, self.refreshrate, self.n
+
     @classmethod
-    def of(cls, cfg: dict) -> "Geometry":
-        return cls(cfg["samplerate"], cfg["height"], cfg["refreshrate"], cfg["block_samples"])
+    def of(cls, cfg: dict, channel: int = 0) -> "Geometry":
+        """Channel `channel`'s receiver geometry (modes.py)."""
+        m = channel_mode(cfg, channel)
+        return cls(cfg["samplerate"], m["height"], m["refreshrate"], cfg["block_samples"])

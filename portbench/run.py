@@ -96,6 +96,7 @@ def main(argv=None) -> int:
         trace = w.prof.read()
         device.update(busy_s=trace.busy_s, window_s=trace.window_s)
         run = types.SimpleNamespace(trace=trace, geometry=res["geometry"],
+                                    geometries=res["geometries"],
                                     blocks_traced=(w.traced_to or 0) - (w.traced_from or 0),
                                     channels=res["n_channels"], config=cell.config,
                                     traffic=cell.traffic)

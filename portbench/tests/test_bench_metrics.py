@@ -33,7 +33,7 @@ def _trace():
 
 def _run(**kw):
     g = Geometry(64e6, 628, 60.0, 786432)
-    base = dict(trace=_trace(), geometry=g, blocks_traced=2, channels=1)
+    base = dict(trace=_trace(), geometry=g, geometries=[g], blocks_traced=2, channels=1)
     base.update(kw)
     return types.SimpleNamespace(**base)
 
@@ -62,6 +62,15 @@ def test_k1_roofline():
     want = 100 * nbytes / peaks.HBM_BYTES_PER_S / 10e-6
     assert READERS["k1_roofline_pct"].read(_run()) == pytest.approx(want)
     assert 9.4e6 < nbytes < 9.5e6  # the envelope and tail in, ~1.57 M pixels out
+
+
+def test_k1_roofline_averages_the_channels_geometries():
+    """Channels of their own modes: a launch's bytes are the channels' mean."""
+    gs = [Geometry(16e6, h, r, 786432) for h, r in ((628, 60.0), (806, 60.0), (1066, 75.0))]
+    nbytes = sum(4 * (786432 + g.taps) + 4 * 786432 * g.pixels_per_sample for g in gs) / 3
+    want = 100 * nbytes / peaks.HBM_BYTES_PER_S / 10e-6
+    assert READERS["k1_roofline_pct"].read(_run(geometry=gs[0], geometries=gs)) == \
+        pytest.approx(want)
 
 
 def test_silence_where_nothing_is_read():

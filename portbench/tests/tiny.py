@@ -21,6 +21,17 @@ def tiny_config(channels: int = 1) -> dict:
     return cfg
 
 
+def mixed_config() -> dict:
+    """Three channels of their own modes, two heights and two refresh rates:
+    100 lines at 60 Hz, 120 at 60 Hz, 100 at 75 Hz, each emitter's raster
+    as many lines with an active area of its own."""
+    cfg = tiny_config(3)
+    cfg.update(name="tiny-mixed", height=[100, 120, 100], refreshrate=[60, 60, 75],
+               raster=dict(lines=[100, 120, 100], total_width=[200, 166, 160],
+                           active=[[160, 80], [130, 100], [128, 80]]))
+    return cfg
+
+
 def traffic(name: str) -> dict:
     with open(os.path.join(BENCH, "traffic", name + ".json")) as f:
         return json.load(f)
@@ -29,11 +40,12 @@ def traffic(name: str) -> dict:
 class Cell:
     """What the harness reads of a cell, without BENCHMARK.json."""
 
-    def __init__(self, cfg: dict, traffic_: dict):
+    def __init__(self, cfg: dict, traffic_: dict, bench: str = BENCH):
         self.config, self.traffic = cfg, traffic_
         self.end_to_end = [dict(name="setup_s", unit="s"), dict(name="ingest_msps", unit="MS/s")]
         self.per_layer = []
-        self.driver = manifest.load_driver(BENCH, traffic_["driver"])
+        self.driver = manifest.load_driver(bench, traffic_["driver"])
+        self.session, self.reference = manifest.load_receiver(bench, cfg)
 
 
 DUMMY_DRIVER = '''"""A driver of its own: the premade loop, reporting blocks a second too."""
@@ -94,3 +106,34 @@ def with_dummy(root: str) -> dict:
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(m, f)
     return m
+
+
+FILES = os.path.join(BENCH, "tests", "files")
+
+
+def with_cell(root: str, cfg: dict, files=()) -> dict:
+    """Adds the configuration `cfg`, the modules `files` (paths under
+    tests/files/, copied to the same path under portbench/) and a cell
+    `<name>-premade` to the benchmark under root, by new files and new
+    entries only; returns the new manifest."""
+    for rel in files:
+        shutil.copy(os.path.join(FILES, rel), os.path.join(root, "portbench", rel))
+    with open(os.path.join(root, "portbench", "configs", cfg["name"] + ".json"), "w") as f:
+        json.dump(cfg, f)
+    m = copy.deepcopy(manifest.load(root))
+    m["configs"].append(dict(name=cfg["name"], source="https://example.org/" + cfg["name"],
+                             file=f"portbench/configs/{cfg['name']}.json", reduced=[],
+                             why="a test"))
+    m["workloads"].append(dict(name=cfg["name"] + "-premade", config=cfg["name"],
+                               traffic="premade", chips=1, why="a test"))
+    m["end_to_end"][1]["workloads"].append(cfg["name"] + "-premade")
+    with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
+        json.dump(m, f)
+    return m
+
+
+def files_of(root: str) -> dict:
+    """Every .py and .json file under root but BENCHMARK.json, by path."""
+    return {os.path.join(dp, p): open(os.path.join(dp, p), "rb").read()
+            for dp, _, fs in os.walk(root) for p in fs
+            if p.endswith((".py", ".json")) and p != "BENCHMARK.json"}

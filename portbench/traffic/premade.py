@@ -3,8 +3,8 @@ RawFile plugin replays a recording under PERFORMANCE_BENCHMARK. The
 benchmark's own source holds one period of every channel's raw IQ (and one
 block more) and yields each block as a view at (k * block) mod period; the
 next block is asked for only when the receiver is done with the last, so
-the source layer costs nothing. Session for one channel, MultiSession for
-several.
+the source layer costs nothing. Each channel loops its own period (its
+mode's); the configuration's session module builds the receiver.
 
 Set-up runs the receiver over the stream's first `warm_blocks` blocks (the
 runner's capture, the cuFFT plan, every path of the traffic), then makes
@@ -58,11 +58,12 @@ def source_class():
 
 def drive(ctx) -> dict:
     Premade = source_class()
-    rate, n, period, w = ctx.pc.samplerate, ctx.n, ctx.period, ctx.window
-    ctx.make_session([Premade(lp, period, rate) for lp in ctx.loops],
+    n, w, periods = ctx.n, ctx.window, ctx.channel_periods
+    rates = [pc.samplerate for pc in ctx.channel_pcs]
+    ctx.make_session([Premade(lp, periods[c], rates[c]) for c, lp in enumerate(ctx.loops)],
                      False).run(max_blocks=ctx.cfg["warm_blocks"])
     ctx.sync()
-    sess = ctx.make_session([Premade(lp, period, rate, w if c == 0 else None)
+    sess = ctx.make_session([Premade(lp, periods[c], rates[c], w if c == 0 else None)
                              for c, lp in enumerate(ctx.loops)], True)
     ctx.timed = sess
     setup_s = ctx.clock() - ctx.t_process
@@ -77,4 +78,4 @@ def drive(ctx) -> dict:
                 failed=int(error is not None),
                 metrics=dict(setup_s=setup_s,
                              ingest_msps=w.blocks * n * ctx.n_ch / (t_end - w.t0) / 1e6),
-                raw_for=lambda c, k: (em.block_at(ctx.loops[c], period, n, k), 0))
+                raw_for=lambda c, k: (em.block_at(ctx.loops[c], periods[c], n, k), 0))
