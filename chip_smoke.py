@@ -53,7 +53,14 @@
    flags, with each graph's parent, IF and body nodes, its capture's
    memory, and device ms a block and busy share under the profiler. Every
    run under the profiler in this script (card_counts, profile_trace) is
-   held to the eager step: its outputs, or its frames, bit for bit;
+   held to the eager step: its outputs, or its frames, bit for bit; then
+   the post-process kernels (phase 5c, post_process_phase, its "post-process
+   kernels" line): csrc/post_process.cu against the plain chain at 628 x
+   849 and 628 x 3397, one frame and C = 8, under every flag set (frames
+   and carries bit for bit, the SNR within PP_SNR_TOL), a captured call
+   against eager calls, ms a post-process in a graph beside the bytes bound
+   and the chain, and both benchmark runners' census and untraced replay
+   ms with the chain and with the kernels;
 6. drives the front door: a uint8 capture written to a temporary file goes
    through tempestsdr_tpu_torch.cli.main (rawfile source, 64 MS/s, frames
    and plots saved, K1 once per block) and through TSDR with
@@ -174,6 +181,7 @@ import contextlib
 import functools
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -197,6 +205,7 @@ from tempestsdr_tpu_torch import TSDR, cli, kernels, native, superband  # noqa: 
 from tempestsdr_tpu_torch import tui as tui_mod  # noqa: E402
 from tempestsdr_tpu_torch.config import PIXEL_SPECIAL_VALUE_G, PipelineConfig  # noqa: E402
 from tempestsdr_tpu_torch.kernels import build, graph_cond  # noqa: E402
+from tempestsdr_tpu_torch.kernels import post_process as post_process_mod  # noqa: E402
 from tempestsdr_tpu_torch.kernels.chunked_resample import (  # noqa: E402
     box_resample_pallas_cuda,
     box_resample_pallas_windows_cuda,
@@ -219,6 +228,7 @@ from tempestsdr_tpu_torch.kernels.strided_resample import (  # noqa: E402
     range_launch,
 )
 from tempestsdr_tpu_torch.ops.demod import normalize_iq  # noqa: E402
+from tempestsdr_tpu_torch.ops.sync import PLLState, SweetspotState  # noqa: E402
 from tempestsdr_tpu_torch.ops.resample import (  # noqa: E402
     box_resample_block_chunked,
     box_resample_range_strided,
@@ -264,6 +274,7 @@ from tempestsdr_tpu_torch.stream.graph import (  # noqa: E402
 from tempestsdr_tpu_torch.events import VALUE_ID  # noqa: E402
 from tempestsdr_tpu_torch.stream.state import (  # noqa: E402
     StepOutputs,
+    StreamState,
     init_state,
     reset_autocorr,
     state_leaves,
@@ -2098,9 +2109,9 @@ class Trace(dict):
     it that copies between the host and the card (transfer_ms) and its wall
     ms (host clock, ending in a synchronize), all under the profiler."""
 
-    def named(self, word: str) -> int:
-        """Launches of the kernels whose name holds `word` (any case)."""
-        return sum(c for k, c in self.kernels.items() if word in k.lower())
+    def named(self, *words: str) -> int:
+        """Launches of the kernels whose name holds one of `words` (any case)."""
+        return sum(c for k, c in self.kernels.items() if any(w in k.lower() for w in words))
 
     def ms_each(self, word: str) -> float:
         """Device ms a launch of the kernels whose name holds `word`."""
@@ -2428,9 +2439,10 @@ def graph_step_phase(cfg, smi, n_blocks=24):
 # where 20 ran, with the outputs bit for bit the eager step's).
 
 SET_KERNEL = "set_conditional_kernel"  # csrc/graph_cond.cu: sets a branch's IF-node conditions
-ROUND_KERNEL, POST_KERNEL = "fft", "scan"  # names (any case) of cuFFT's kernels,
-# which only the FFT round runs, and of the sweet-spot searches' cumulative
-# sums, which only the post-process runs
+ROUND_KERNEL = "fft"  # names (any case) of cuFFT's kernels, which only the FFT round runs
+POST_KERNELS = ("scan", "post_process_search")  # of the kernels only the post-process
+# runs: the plain chain's sweet-spot cumulative sums (the orders and fast_sync),
+# or csrc/post_process.cu's search kernel (the default order, once a post-process)
 
 
 class MultiStepRunner(ChannelRunner):
@@ -2445,7 +2457,7 @@ class MultiStepRunner(ChannelRunner):
 
 
 def body_kernels(step, state, raw):
-    """ROUND_KERNEL launches per round body and POST_KERNEL launches per
+    """ROUND_KERNEL launches per round body and POST_KERNELS launches per
     emit body: one eager block of the step (the select form, which runs
     every body once a block: per channel in the unrolled channel step, once
     over the channels in the batched one) under the profiler."""
@@ -2454,7 +2466,7 @@ def body_kernels(step, state, raw):
     c = raw.shape[0] if per_channel else 1
     with card_counts() as trace:
         step(state, raw, StepControls())
-    per = (trace.named(ROUND_KERNEL) / c, trace.named(POST_KERNEL) / (c * k))
+    per = (trace.named(ROUND_KERNEL) / c, trace.named(*POST_KERNELS) / (c * k))
     assert all(float(v).is_integer() for v in per) and per[1] > 0, per
     assert (per[0] > 0) == step.run_autocorr, per  # no round with the plots off
     return int(per[0]), int(per[1])
@@ -2474,12 +2486,12 @@ def taken_bodies(out, gated):
 
 def profiler_bodies(trace, per_body, out, gated):
     """The round and emit bodies a run launched by kernel name under the
-    profiler (ROUND_KERNEL and POST_KERNEL launches over the launches of one
+    profiler (ROUND_KERNEL and POST_KERNELS launches over the launches of one
     body), beside what its packed flags say it took; reported, not held
     (see the section's comment)."""
     rounds, emits = taken_bodies(out, gated)
-    got = (trace.named(ROUND_KERNEL), trace.named(POST_KERNEL))
-    return dict(fft_kernels=got[0], post_process_scan_kernels=got[1],
+    got = (trace.named(ROUND_KERNEL), trace.named(*POST_KERNELS))
+    return dict(fft_kernels=got[0], post_process_kernels=got[1],
                 per_round_body=per_body[0], per_emit_body=per_body[1],
                 agree=got == (per_body[0] * rounds, per_body[1] * emits))
 
@@ -2660,6 +2672,311 @@ def branch_nodes_phase(smi):
     channel_case("make_multi_step runner 8MS/s C=3 K=4 (gated; a drop on channel 1), 4 blocks",
                  MultiStepRunner(g8, Params(), 3, DEV), g8, 3, 4)
     return rows
+
+
+# ---- the post-process kernels (csrc/post_process.cu) -----------------------
+
+PP_SNR_TOL = 1e-4  # the SNR's relative gap, kernels against the plain version: the
+# kernels sum (f - mean)^2 and the mean's pixels in f64 partials, the plain
+# version in torch's f32 reductions (mn, mx, the frames and every integer exact)
+PP_FLAGS = {"default": Params(), "autoshift": Params(autoshift=True),
+            "markers": Params(debug_markers=True), "pll_off": Params(framerate_pll=False)}
+PP_FRAMES = 16  # emanation frames, and as many random ones with planted specials
+
+
+def pp_frames(h, w, lead, seed):
+    """PP_FRAMES emanation frames (a raster drifting a few pixels a frame,
+    each stacked frame at an offset of its own, noise 0.02) then PP_FRAMES
+    uniform random frames with 64 special pixels planted in each (and in
+    pixel 0 of every third), [*lead, H, W] on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    base = torch.from_numpy(render_test_pattern(h, w, seed=seed)).to(DEV)
+    n = math.prod(lead)
+    out = []
+    for k in range(PP_FRAMES):
+        f = torch.stack([torch.roll(base, (3 * k + 5 * i, 7 * k + 11 * i), dims=(0, 1))
+                         for i in range(n)])
+        f = f + 0.02 * torch.randn(f.shape, generator=gen, device=DEV)
+        out.append(f.reshape(lead + (h, w)))
+    specials = torch.tensor([300.0, -300.0, 1000.0, -251.0], device=DEV)
+    for k in range(PP_FRAMES):
+        f = torch.rand((n, h * w), generator=gen, device=DEV)
+        at = torch.randint(0, h * w, (n, 64), generator=gen, device=DEV)
+        f.scatter_(1, at, specials[torch.randint(0, 4, (n, 64), generator=gen, device=DEV)])
+        if k % 3 == 0:
+            f[:, 0] = 500.0
+        out.append(f.reshape(lead + (h, w)))
+    return out
+
+
+def pp_carries(lead):
+    """A post-process's carries at the state's start, [*lead] leaves."""
+    def z(dtype):
+        return torch.zeros(lead, dtype=dtype, device=DEV)
+
+    ag = (z(torch.float32), z(torch.float32), torch.ones(lead, device=DEV))
+    return (ag, SweetspotState(*(z(torch.int32) for _ in range(3))),
+            SweetspotState(*(z(torch.int32) for _ in range(3))),
+            PLLState(z(torch.float64), z(torch.bool), z(torch.float32)))
+
+
+def pp_leaves(out):
+    """(frames [result, screen], exact leaves, snr) of a post-process's outputs."""
+    result, screen, (mn, mx, snr), sx, sy, pll = out
+    return [result, screen], [mn, mx, *sx, *sy, *pll], snr
+
+
+def pp_hold(cfg, params, lead, frames):
+    """The kernels against the plain version on the card over the frames,
+    each frame from the plain version's carries: frames, min, max, the sync
+    and PLL carries exact, the SNR within PP_SNR_TOL; every kernel call
+    under set_sync_debug_mode("error"). Then each chained on its own carries
+    over all the frames, the carries at the end equal."""
+    spec = pipeline_mod._post_spec(cfg, params)
+    shape = tuple(lead) + (cfg.height, cfg.width)
+    mb = torch.full(tuple(lead), 0.25, device=DEV)
+    worst_snr = 0.0
+    mine = plain = (torch.zeros(shape, device=DEV), *pp_carries(tuple(lead)))
+    for k, f in enumerate(frames):
+        with sync_debug("error"):
+            got = post_process_mod.post_process_cuda(f, *plain, mb, spec)
+        want = pipeline_mod._post_process_default_order(f, *plain, mb, spec)
+        (gf, gx, gs), (wf, wx, ws) = pp_leaves(got), pp_leaves(want)
+        for i, (a, b) in enumerate(zip(gf + gx, wf + wx)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (
+                "post-process kernels", shape, params, k, i, (a != b).sum().item())
+        worst_snr = max(worst_snr, ((gs - ws).abs() / ws.abs()).max().item())
+        plain = want[1:]
+        mine = post_process_mod.post_process_cuda(f, *mine, mb, spec)[1:]
+    assert worst_snr <= PP_SNR_TOL, (shape, params, worst_snr)
+    ends = [pp_leaves((m[0],) + tuple(m)) for m in (mine, plain)]
+    assert all(torch.equal(a, b) for a, b in zip(ends[0][1], ends[1][1])), (shape, params)
+    return worst_snr
+
+
+def pp_replayed(cfg, lead, frames):
+    """One post-process of the stack captured in a CUDA graph and replayed
+    three times, then with the next frame copied in: every output bit for
+    bit the eager call's."""
+    spec = pipeline_mod._post_spec(cfg, Params())
+    shape = tuple(lead) + (cfg.height, cfg.width)
+    static = frames[0].clone()
+    ins = (torch.zeros(shape, device=DEV), *pp_carries(tuple(lead)))
+    mb = torch.full(tuple(lead), 0.25, device=DEV)
+    eager = [post_process_mod.post_process_cuda(f, *ins, mb, spec) for f in frames[:2]]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = post_process_mod.post_process_cuda(static, *ins, mb, spec)
+    for k, want in ((0, eager[0]), (0, eager[0]), (0, eager[0]), (1, eager[1])):
+        static.copy_(frames[k])
+        graph.replay()
+        for a, b in zip(graph_cond._leaves(out), graph_cond._leaves(want)):
+            assert torch.equal(a, b), ("post-process replay", shape, k)
+    return True
+
+
+def pp_graph_ms(cfg, lead, frames, fn, reps=16):
+    """Device ms a post-process of fn: `reps` of them chained over the frames
+    in one CUDA graph, its replays timed with CUDA events (median of 10),
+    over reps; and the kernels' device ms each a post-process by the
+    profiler (none for the plain chain)."""
+    spec = pipeline_mod._post_spec(cfg, Params())
+    shape = tuple(lead) + (cfg.height, cfg.width)
+    mb = torch.full(tuple(lead), 0.25, device=DEV)
+    carry = (torch.zeros(shape, device=DEV), *pp_carries(tuple(lead)))
+    fn(frames[0], *carry, mb, spec)  # loads and warms outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c = carry
+        for k in range(reps):
+            c = fn(frames[k % len(frames)], *c, mb, spec)[1:]
+    times = []
+    for _ in range(13):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1) / reps)
+    with card_counts() as trace:
+        graph.replay()
+    by_kernel = {re.search(r"post_process_\w+", k).group(0): v / reps
+                 for k, v in trace.device_ms_by.items() if "post_process_" in k}
+    return dict(ms=float(np.median(times[3:])), device_ms_by_kernel=by_kernel)
+
+
+@contextlib.contextmanager
+def plain_post_process():
+    """Within: the step's default order runs the plain chain on the card too,
+    as it did before the kernels (the 'before' of the census)."""
+    real = pipeline_mod.post_process_cuda
+    pipeline_mod.post_process_cuda = pipeline_mod._post_process_default_order
+    try:
+        yield
+    finally:
+        pipeline_mod.post_process_cuda = real
+
+
+def pp_runner(name, runner, state, raws, ctl, n=12):
+    """A runner captured (its warm-up block and capture counted by the
+    wrapper), its census, its untraced replays timed (ms a block, CUDA
+    events around copy-in and replay, median over n blocks) and the
+    post-process kernels and emitted frames of the replays of raws[1:]
+    under the profiler."""
+    n0 = post_process_mod.post_process_cuda.launches
+    state, out, _ = runner.run(state, raws[0], ctl)
+    torch.cuda.synchronize()
+    captured = post_process_mod.post_process_cuda.launches - n0
+    times = []
+    for i in range(n):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, out, _ = runner.run(state, raws[i % len(raws)], ctl)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    frames = 0
+    with card_counts() as trace:
+        for raw in raws[1:]:
+            state, out, _ = runner.run(state, raw, ctl)
+            frames += int(out.frame_valid.sum())
+    return dict(runner=name, census=runner.census(),
+                wrapper_launches_in_warm_up_and_capture=captured,
+                replay_ms_per_block_untraced=float(np.median(times)),
+                replays=dict(blocks=len(raws) - 1, frames=frames,
+                             post_process_kernels=trace.named("post_process_"),
+                             device_ms=trace.device_ms))
+
+
+def pp_runners_agree(name, make, new_state, raws, ctl):
+    """The main path's runner with the plain chain (as before the kernels)
+    and with the kernels, the kernels' one captured with a device counter
+    in each IF-node body (counted_bodies); then both from fresh states over
+    the same raws (distinct blocks, each of its own noise) in turns, the
+    counters zeroed just before: every replay's emitted frames, validity,
+    sync, PLL, autogain min and max and the rest of its outputs bit for bit,
+    the SNR within PP_SNR_TOL, and the carries at the end equal likewise.
+    The bodies the counters saw are the emitted frames, so the post-process
+    kernels launched 3 an emitted frame on this path, inside the replays."""
+    with plain_post_process():
+        plain = make()
+        plain.run(new_state(), raws[0], ctl)
+    post_process_mod.post_process_cuda.launches = 0
+    with counted_bodies() as counters:
+        mine = make()
+        mine.run(new_state(), raws[0], ctl)
+    torch.cuda.synchronize()
+    captured = post_process_mod.post_process_cuda.launches
+    sp, sm = new_state(), new_state()
+    counters.cnt.zero_()
+    frames, worst_snr = 0, 0.0
+
+    def snr_gap(a, b):
+        return ((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+
+    for k, raw in enumerate(raws):
+        sp, op, _ = plain.run(sp, raw, ctl)
+        sm, om, _ = mine.run(sm, raw, ctl)
+        valid = op.frame_valid
+        assert torch.equal(valid, om.frame_valid), (name, k)
+        assert torch.equal(op.frame[valid], om.frame[valid]), (
+            name, k, (op.frame[valid] != om.frame[valid]).sum().item())
+        for field, a, b in zip(StepOutputs._fields, op, om):
+            if field not in ("frame", "ag_snr"):
+                assert torch.equal(a, b), (name, k, field)
+        worst_snr = max(worst_snr, snr_gap(om.ag_snr, op.ag_snr))
+        frames += int(valid.sum())
+    for field, a, b in zip(StreamState._fields, sp, sm):
+        for x, y in zip(a, b) if isinstance(a, tuple) else ((a, b),):
+            if field == "ag_snr":
+                worst_snr = max(worst_snr, snr_gap(y, x))
+            else:
+                assert torch.equal(x, y), (name, "final state", field)
+    assert worst_snr <= PP_SNR_TOL, (name, worst_snr)
+    seen = {site: int(counters.cnt[i]) for site, i in counters.index.items()}
+    bodies = sum(v for site, v in seen.items() if site.endswith("emit_fn"))
+    assert frames > 0 and bodies == frames, (name, seen, frames)
+    return dict(blocks=len(raws), frames=frames, emit_bodies_counted=bodies,
+                launches=3 * bodies, wrapper_launches_at_capture=captured,
+                worst_snr_gap=worst_snr)
+
+
+def post_process_phase(smi):
+    """The post-process kernels (csrc/post_process.cu) against their plain
+    version on the card, at the 64 MS/s (628 x 3397) and config 5 (628 x
+    849) geometries, one frame and C = 8 (pp_hold, every flag set of
+    PP_FLAGS), a capture replayed against eager calls (pp_replayed); ms a
+    post-process in a graph of 16, kernels and plain chain, beside the
+    bytes bound; the same at one frame of a superresolution pipeline of a
+    64 MS/s source (256 MS/s, 628 x 13588: the search's profiles do not fit
+    in shared memory); then the 64 MS/s BlockRunner (K = 1) and config 5's
+    unrolled ChannelRunner with the plain chain (as before the kernels) and
+    with the kernels: census, untraced replay ms a block, the kernels in a
+    replay by the profiler; and each held replay by replay against the
+    plain chain's on the same raws, the kernels' launches on the path
+    counted by body counters (pp_runners_agree). Returns the row."""
+    t0 = time.time()
+    geoms = {"628x3397": GEOMETRIES["64MS/s"], "628x849": CH5,
+             "628x13588": PipelineConfig(samplerate=256e6, height=628, refreshrate=60.0,
+                                         block_samples=4 * 786432)}
+    assert geoms["628x13588"].width == 13588
+    row = dict(card=smi, snr_tol=PP_SNR_TOL, worst_snr_gap={}, replayed={}, ms_per_post_process={})
+    for gname, cfg in geoms.items():
+        for lead in ((), (N_CH,)) if cfg.width < 13588 else ((),):
+            key = f"{gname} C={math.prod(lead)}"
+            frames = pp_frames(cfg.height, cfg.width, lead, seed=len(row["worst_snr_gap"]))
+            row["worst_snr_gap"][key] = {flag: pp_hold(cfg, params, lead, frames)
+                                         for flag, params in PP_FLAGS.items()}
+            row["replayed"][key] = pp_replayed(cfg, lead, frames)
+            # the frame and the screen read, the new screen and the emitted frame written
+            nbytes = 4 * 4 * cfg.height * cfg.width * math.prod(lead)
+            row["ms_per_post_process"][key] = dict(
+                kernels=pp_graph_ms(cfg, lead, frames, post_process_mod.post_process_cuda),
+                plain=pp_graph_ms(cfg, lead, frames, pipeline_mod._post_process_default_order),
+                bytes_bound=nbytes / 3.35e12 * 1e3)
+    g64 = GEOMETRIES["64MS/s"]
+    raws64 = [torch.from_numpy(b).to(DEV)[None] for b in
+              ReplayU8(g64, render_test_pattern(g64.height, g64.width // 2), 4).blocks]
+    raws5 = [torch.from_numpy(b).to(DEV) for b in channel_blocks(channel_sources(CH5, N_CH, 4))]
+    runners = []
+    for label, ctx in (("plain chain", plain_post_process), ("kernels", contextlib.nullcontext)):
+        with ctx():
+            runners.append(pp_runner(f"BlockRunner 64MS/s K=1, {label}",
+                                     BlockRunner(g64, Params(), 1, DEV),
+                                     init_state(g64, device=DEV),
+                                     raws64, np.zeros((1, 3))))
+            runners.append(pp_runner(f"ChannelRunner config 5 unrolled, {label}",
+                                     ChannelRunner(CH5, Params(), N_CH, DEV),
+                                     stack_states(CH5, N_CH, device=DEV), raws5,
+                                     np.zeros((N_CH, 3))))
+    for r in runners[2:]:  # by name in IF-node bodies: reported, the body counters hold
+        r["replays"]["agree"] = r["replays"]["post_process_kernels"] == 3 * r["replays"]["frames"]
+        assert r["replays"]["post_process_kernels"] > 0 and r["replays"]["frames"] > 0, r
+        assert r["wrapper_launches_in_warm_up_and_capture"] > 0, r
+    for r in runners[:2]:  # none captured (the profiler's names are reported only)
+        assert r["wrapper_launches_in_warm_up_and_capture"] == 0, r
+    row["runners"] = runners
+    row["body_nodes_cut"] = {
+        r["runner"].split(",")[0]: 1 - r["census"]["body_nodes"] / p["census"]["body_nodes"]
+        for p, r in zip(runners[:2], runners[2:])}
+    row["launches"] = post_process_mod.post_process_cuda.launches
+    # the main paths against the plain chain, replay by replay, on blocks
+    # of their own (8 at 64 MS/s, 6 of 8 channels at config 5)
+    raws64 = [torch.from_numpy(b).to(DEV)[None] for b in
+              ReplayU8(g64, render_test_pattern(g64.height, g64.width // 2), 8).blocks]
+    raws5 = [torch.from_numpy(b).to(DEV) for b in channel_blocks(channel_sources(CH5, N_CH, 6))]
+    row["main_paths"] = {
+        "BlockRunner 64MS/s K=1, 8 blocks": pp_runners_agree(
+            "BlockRunner 64MS/s", lambda: BlockRunner(g64, Params(), 1, DEV),
+            lambda: init_state(g64, device=DEV), raws64, np.zeros((1, 3))),
+        "ChannelRunner config 5 unrolled, 6 blocks": pp_runners_agree(
+            "ChannelRunner config 5", lambda: ChannelRunner(CH5, Params(), N_CH, DEV),
+            lambda: stack_states(CH5, N_CH, device=DEV), raws5, np.zeros((N_CH, 3)))}
+    row["seconds"] = time.time() - t0
+    print("post-process kernels " + json.dumps(row), flush=True)
+    return row
 
 
 # ---- intake paths: what users feed the receiver ---------------------------
@@ -3380,7 +3697,7 @@ def flag_set(cfg, name, params, motionblur, kid, blocks, batches=(1,)):
         b = int(eager.frame_valid.nonzero()[0, 0])
         frame, sx, sy = eager.frame[b], state.sync_x, state.sync_y
         row["autoshift_gathers_ms_flushed"] = time_launches(
-            lambda: pipeline_mod._sync_apply(params, frame, sx, sy))
+            lambda: pipeline_mod._sync_apply(pipeline_mod._post_spec(cfg, params), frame, sx, sy))
     return row
 
 
@@ -4588,6 +4905,7 @@ def smoke():
     print(f"per-block host fetch round trip: {fetch_cost_us():.1f} us")
     graph_launches, graph_k2 = graph_step_phase(g64, smi)
     branch_nodes_phase(smi)
+    pp_row = post_process_phase(smi)
     flag_launches = flags_phase(smi)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -4657,6 +4975,24 @@ def smoke():
         max_abs_err=0.0, ms=set_row["ms"],
         plain_ms=time_launches(lambda: torch.stack([pred, ~pred]).to(torch.int32)),
         bound_ms=bound(9, 0)["bound_ms"], bound_by="bytes", library_ms=None))
+    # the post-process kernels (no TPU kernel: XLA fuses the JAX package's
+    # chain): a post-process's three launches, their launches on the main
+    # paths counted by IF-body counters in the replays (pp_runners_agree),
+    # ms a post-process at 64 MS/s (628 x 3397, one frame) beside the plain
+    # chain's and the bytes bound (the frame and the screen read, the new
+    # screen and the emitted frame written), max_abs_err 0: frames bit for
+    # bit the plain chain's
+    pp_ms = pp_row["ms_per_post_process"]
+    kern.append(dict(
+        name="post_process stats, search, apply", route="cuda",
+        source="tempestsdr_tpu_torch/csrc/post_process.cu",
+        replaces="none: tempestsdr_tpu/stream/pipeline.py:216, fused by XLA",
+        launches=pp_row["main_paths"]["ChannelRunner config 5 unrolled, 6 blocks"]["launches"],
+        launches_by_path={k: v["launches"] for k, v in pp_row["main_paths"].items()},
+        max_abs_err=0.0, ms=pp_ms["628x3397 C=1"]["kernels"]["ms"],
+        plain_ms=pp_ms["628x3397 C=1"]["plain"]["ms"],
+        bound_ms=pp_ms["628x3397 C=1"]["bytes_bound"], bound_by="bytes", library_ms=None,
+        ms_by_geometry={k: v["kernels"]["ms"] for k, v in pp_ms.items()}))
     print(f"card: {smi}")
     print(json.dumps({"floors": floors}))
     print(json.dumps({"kernels": kern}))

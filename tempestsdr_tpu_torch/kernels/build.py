@@ -2,10 +2,10 @@
 interface and loads them with ctypes.
 
 Each source compiles with nvcc for sm_90a into build/lib<name>-<hash>.so at
-first use; the hash of the source, of the headers beside it (csrc/*.cuh)
-and of the flags names the library, so an edited source never loads a stale
-build. build() starts one nvcc per missing library, all
-at once, and waits for them together.
+first use (the first load builds every source); the hash of the source, of
+the headers beside it (csrc/*.cuh) and of the flags names the library, so an
+edited source never loads a stale build. build() starts one nvcc per missing
+library, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -70,11 +70,16 @@ def build(names) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built first if needed."""
+    """The loaded library for csrc/<name>.cu, built first if needed, with
+    every other missing library of the package at once: a step loads
+    several at its first blocks, and the first load then pays for the
+    slowest nvcc instead of for each in turn."""
+    from . import SOURCES
+
     with _LOCK:
         lib = _LOADED.get(name)
         if lib is None:
-            build([name])
+            build([name, *(s for s in SOURCES if s != name)])
             lib = ctypes.CDLL(_lib_path(name))
             _LOADED[name] = lib
         return lib

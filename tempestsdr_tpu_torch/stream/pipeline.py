@@ -73,6 +73,7 @@ from ..params import Params
 from ..kernels import graph_cond
 from ..kernels.chunked_resample import box_resample_pallas_cuda, box_resample_pallas_windows_cuda
 from ..kernels.fused_demod_resample import fused_demod_resample_cuda
+from ..kernels.post_process import PostSpec, covers, post_process_cuda
 from ..kernels.strided_resample import box_resample_strided_cuda
 from ..ops.autocorr import accumulate_running_mean, autocorrelation_magnitude
 from ..ops.demod import am_demod, normalize_iq
@@ -166,84 +167,98 @@ def _fused_wanted(config: PipelineConfig, params: Params) -> bool:
     return plan is not None and plan[0] == 2 and config.block_samples % 4096 == 0
 
 
-def _collapse(config: PipelineConfig, params: Params, frame2d):
-    if params.fast_sync:
-        return collapse_v_h(frame2d, False, widen=False)
-    return collapse_v_h(frame2d, config.high_precision_sync)
+def _post_spec(config: PipelineConfig, params: Params) -> PostSpec:
+    """The static half of a frame's post-process, from the step's config and
+    Params (fast_sync: f32 sums into f32 profiles; else f64 profiles, their
+    sums f64 under config.high_precision_sync)."""
+    return PostSpec(
+        minsize_x=int(config.width * np.float32(0.05)),
+        minsize_y=int(config.height * np.float32(0.01)),
+        pll_enabled=params.framerate_pll, max_delta=PLL_HEADROOM_FRAC * config.refreshrate,
+        autoshift=params.autoshift, markers=params.debug_markers,
+        precise=config.high_precision_sync and not params.fast_sync, widen=not params.fast_sync)
 
 
-def _sync_positions(config: PipelineConfig, params: Params, sync_x, sync_y, pll, wprof, hprof):
+def _collapse(spec: PostSpec, frame2d):
+    return collapse_v_h(frame2d, spec.precise, widen=spec.widen)
+
+
+def _sync_positions(spec: PostSpec, sync_x, sync_y, pll, wprof, hprof):
     """Sweet-spot search on both profiles + the PLL (syncdetector.c:171-186)."""
-    sx, _, _ = find_the_sweet_spot(
-        sync_x, wprof, int(config.width * np.float32(0.05)), FRAMERATE_DX_LOWPASS_COEFF_WIDTH)
-    sy, _, _ = find_the_sweet_spot(
-        sync_y, hprof, int(config.height * np.float32(0.01)), FRAMERATE_DX_LOWPASS_COEFF_HEIGHT)
-    pll = framerate_pll(pll, sx.vx, enabled=params.framerate_pll,
-                        max_delta=PLL_HEADROOM_FRAC * config.refreshrate)
+    sx, _, _ = find_the_sweet_spot(sync_x, wprof, spec.minsize_x, FRAMERATE_DX_LOWPASS_COEFF_WIDTH)
+    sy, _, _ = find_the_sweet_spot(sync_y, hprof, spec.minsize_y,
+                                   FRAMERATE_DX_LOWPASS_COEFF_HEIGHT)
+    pll = framerate_pll(pll, sx.vx, enabled=spec.pll_enabled, max_delta=spec.max_delta)
     return sx, sy, pll
 
 
-def _sync_apply(params: Params, data2d, sx, sy):
+def _sync_apply(spec: PostSpec, data2d, sx, sy):
     """Autoshift (circular shift moving the detected strips to the frame
     edges: torch.roll by (-dy, -dx), as two gathers at device-side indices)
     or green crosshair markers (syncdetector.c:187-218). data2d [..., H, W]
     with sync states of [...] leaves."""
     h, w = data2d.shape[-2:]
     dev = data2d.device
-    if params.autoshift:
+    if spec.autoshift:
         rows = torch.remainder(torch.arange(h, device=dev) + sy.dx[..., None], h)
         cols = torch.remainder(torch.arange(w, device=dev) + sx.dx[..., None], w)
         out = torch.take_along_dim(data2d, rows[..., :, None], dim=-2)
         return torch.take_along_dim(out, cols[..., None, :], dim=-1)
-    if params.debug_markers:
+    if spec.markers:
         col = torch.arange(w, dtype=torch.int32, device=dev) == sx.dx[..., None, None]
         row = torch.arange(h, dtype=torch.int32, device=dev)[:, None] == sy.dx[..., None, None]
         return torch.where(col | row, PIXEL_SPECIAL_VALUE_G, data2d)
     return data2d
 
 
-def _post_process_default_order(config, params, frame2d, screen, ag, sync_x, sync_y, pll,
-                                motionblur):
+def _post_process_default_order(frame2d, screen, ag, sync_x, sync_y, pll, motionblur,
+                                spec: PostSpec):
     """Autogain before sync, lowpass after (dsp.c:192-226, both order flags
     0). The collapse runs on the raw frame: the sweet-spot metric is
     invariant under autogain's affine map, so the positions are the same
-    and normalize, shift and motion blur fuse into one elementwise pass."""
+    and normalize, shift and motion blur fuse into one elementwise pass.
+    The plain chain that kernels/post_process.py runs as three launches
+    on the card."""
     f = frame2d
     _, mn, mx, snr = autogain_run(f, ag[0], ag[1], NORMALISATION_LOWPASS_COEFF, stats_only=True)
     ag = (mn, mx, snr)
-    wprof, hprof = _collapse(config, params, f)
-    sync_x, sync_y, pll = _sync_positions(config, params, sync_x, sync_y, pll, wprof, hprof)
+    wprof, hprof = _collapse(spec, f)
+    sync_x, sync_y, pll = _sync_positions(spec, sync_x, sync_y, pll, wprof, hprof)
     span = torch.where(mx == mn, torch.ones_like(mx), mx - mn)
     norm = (f - mn[..., None, None]) / span[..., None, None]
-    syncres = _sync_apply(params, norm, sync_x, sync_y)
+    syncres = _sync_apply(spec, norm, sync_x, sync_y)
     screen = time_lowpass(screen, syncres, motionblur)
     return screen, screen, ag, sync_x, sync_y, pll
 
 
 def _post_process(config, params, frame2d, screen, ag, sync_x, sync_y, pll, motionblur):
     """dsp_post_process (dsp.c:134-239): the configurable-order chain, on
-    one frame [H, W] or a stack [C, H, W] with carries of [C] leaves."""
+    one frame [H, W] or a stack [C, H, W] with carries of [C] leaves. The
+    default order runs the post-process kernels (kernels/post_process.py)
+    on a CUDA frame with f64 profiles, else the plain chain."""
+    spec = _post_spec(config, params)
     if not params.autogain_after_proc and not params.lowpass_before_sync:
-        return _post_process_default_order(config, params, frame2d, screen, ag, sync_x,
-                                           sync_y, pll, motionblur)
+        run = (post_process_cuda if frame2d.device.type == "cuda" and covers(spec)
+               else _post_process_default_order)
+        return run(frame2d, screen, ag, sync_x, sync_y, pll, motionblur, spec)
     inp = frame2d
     if not params.autogain_after_proc:
         inp, mn, mx, snr = autogain_run(inp, ag[0], ag[1], NORMALISATION_LOWPASS_COEFF)
         ag = (mn, mx, snr)
     if params.lowpass_before_sync:
         screen = time_lowpass(screen, inp, motionblur)
-        wprof, hprof = _collapse(config, params, screen)
-        sync_x, sync_y, pll = _sync_positions(config, params, sync_x, sync_y, pll, wprof, hprof)
-        syncres = _sync_apply(params, screen, sync_x, sync_y)
+        wprof, hprof = _collapse(spec, screen)
+        sync_x, sync_y, pll = _sync_positions(spec, sync_x, sync_y, pll, wprof, hprof)
+        syncres = _sync_apply(spec, screen, sync_x, sync_y)
         if params.autogain_after_proc:
             result, mn, mx, snr = autogain_run(syncres, ag[0], ag[1], NORMALISATION_LOWPASS_COEFF)
             ag = (mn, mx, snr)
         else:
             result = syncres
     else:
-        wprof, hprof = _collapse(config, params, inp)
-        sync_x, sync_y, pll = _sync_positions(config, params, sync_x, sync_y, pll, wprof, hprof)
-        syncres = _sync_apply(params, inp, sync_x, sync_y)
+        wprof, hprof = _collapse(spec, inp)
+        sync_x, sync_y, pll = _sync_positions(spec, sync_x, sync_y, pll, wprof, hprof)
+        syncres = _sync_apply(spec, inp, sync_x, sync_y)
         screen = time_lowpass(screen, syncres, motionblur)
         if params.autogain_after_proc:
             result, mn, mx, snr = autogain_run(screen, ag[0], ag[1], NORMALISATION_LOWPASS_COEFF)
