@@ -166,10 +166,9 @@
    one 8.5 MB frame) and config 5 (MultiSession, about 49 MB of frames a
    block): every row a session downloads bit for bit the stack's .cpu();
    the frames kept from 4 blocks unchanged after 8 more; the pinned hit
-   share over a steady stretch and the pinned host memory held; ms a block
-   of the session and of its downloads, pinned against the pageable path
-   it replaced, in turns; one block's download alone on an idle card,
-   pinned against pageable;
+   share over two steady stretches and the pinned host memory held; ms a
+   block of the session and of its downloads; one block's download alone,
+   consecutive and gathered rows, bit for bit the stack's .cpu();
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -256,7 +255,6 @@ from tempestsdr_tpu_torch.stream.pipeline import (  # noqa: E402
     make_channels_step_hybrid,
     make_step,
 )
-from tempestsdr_tpu_torch.stream import multisession as multisession_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream import pipeline as pipeline_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream import session as session_mod  # noqa: E402
 from tempestsdr_tpu_torch.stream.session import (  # noqa: E402
@@ -1418,7 +1416,7 @@ def channels_split(cfg, srcs, n_blocks=8):
                       on_plot=lambda c, ev: None, device=DEV)
     spent = {}
     undo = [_timed(ChannelRunner, "run", spent), _timed(torch.Tensor, "tolist", spent),
-            _timed(multisession_mod, "_download", spent)]
+            _timed(session_mod, "_download", spent)]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4702,16 +4700,6 @@ KERNELS = {  # id: (wrapper, source, the TPU kernel it replaces)
 # ---- phase 13: the downloads into pinned memory -----------------------------
 
 
-def _pageable_download(stack, rows):
-    """The download as it was before pinned memory: the rows through .cpu()
-    into a fresh pageable array (the A side of pinned_downloads)."""
-    if not rows:
-        return []
-    if rows == list(range(rows[0], rows[0] + len(rows))):
-        return list(stack[rows[0]:rows[0] + len(rows)].cpu().numpy())
-    return list(stack[rows].cpu().numpy())
-
-
 def _host_pool():
     """The caching host allocator's blocks made and the bytes it holds."""
     st = torch.cuda.host_memory_stats()
@@ -4719,17 +4707,17 @@ def _host_pool():
                                "active_bytes.current") if k in st}
 
 
-def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
+def pinned_downloads(name, make, per_block, frame_shape, steady_blocks):
     """One configuration's pinned downloads: `make(on_frame, on_plot)` a
-    session whose module `mod` names the _download it calls. Every row it
-    downloads bit for bit the stack's .cpu(); the frames kept from its first
-    4 blocks unchanged after 8 more; then steady stretches of steady_blocks
-    that keep nothing, pinned, pageable, pageable, pinned (ms a block of the
-    session and of its downloads, the pinned runs' download_stats); then a
-    stack of `per_block` frames downloaded alone on an idle card, pinned
-    against pageable, in turns. Returns the row it prints."""
+    session, whose frames come down through session_mod._download. Every
+    row it downloads bit for bit the stack's .cpu(); the frames kept from
+    its first 4 blocks unchanged after 8 more; then two steady stretches of
+    steady_blocks that keep nothing (ms a block of the session and of its
+    downloads, download_stats); then a stack of `per_block` frames
+    downloaded alone, consecutive rows and gathered ones, bit for bit the
+    stack's .cpu(). Returns the row it prints."""
     make(None, None).run(max_blocks=4)  # the capture, the cuFFT plans, the pool's first blocks
-    real, checked = mod._download, [0]
+    real, checked = session_mod._download, [0]
 
     def checking(stack, rows):
         got = real(stack, rows)
@@ -4745,7 +4733,7 @@ def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
         kept.append(values)
         clones.append(np.array(values, copy=True))
 
-    mod._download = checking
+    session_mod._download = checking
     try:
         sess = make(keep, keep)
         sess.run(max_blocks=4)
@@ -4753,7 +4741,7 @@ def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
         sess.run(max_blocks=8)  # the same session 8 blocks on: its graph rewrites its outputs
         held_pool = _host_pool()
     finally:
-        mod._download = real
+        session_mod._download = real
     assert first >= 1 and checked[0] >= first, (name, first, checked[0])
     for i, (a, b) in enumerate(zip(kept, clones)):
         assert a.tobytes() == b.tobytes(), (name, "a kept row changed", i)
@@ -4762,10 +4750,9 @@ def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
     del kept, clones, sess
 
     turns = []
-    for mode in ("pinned", "pageable", "pageable", "pinned"):
-        mod._download = real if mode == "pinned" else _pageable_download
+    for _ in range(2):
         spent = {}
-        undo = _timed(mod, "_download", spent)
+        undo = _timed(session_mod, "_download", spent)
         try:
             sess = make(lambda *a: None, lambda *a: None)
             torch.cuda.synchronize()
@@ -4775,15 +4762,12 @@ def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
             dt = time.perf_counter() - t0
         finally:
             undo()
-            mod._download = real
-        row = dict(mode=mode, ms_a_block=dt * 1e3 / steady_blocks,
-                   download_ms_a_block=spent.get("_download", 0.0) * 1e3 / steady_blocks)
-        if mode == "pinned":
-            st = sess.download_stats
-            assert st.downloads > 0, name
-            row.update(downloads=st.downloads, bytes_a_block=st.bytes / steady_blocks,
-                       fresh_pinned=st.fresh_pinned, pinned_hit_share=st.pinned_hit_share)
-        turns.append(row)
+        st = sess.download_stats
+        assert st.downloads > 0, name
+        turns.append(dict(ms_a_block=dt * 1e3 / steady_blocks,
+                          download_ms_a_block=spent.get("_download", 0.0) * 1e3 / steady_blocks,
+                          downloads=st.downloads, bytes_a_block=st.bytes / steady_blocks,
+                          fresh_pinned=st.fresh_pinned, pinned_hit_share=st.pinned_hit_share))
     assert turns[-1]["pinned_hit_share"] >= 0.9, turns  # every bucket met in the first turn
 
     stack = torch.randn((per_block + 2, *frame_shape), device=DEV)
@@ -4791,14 +4775,6 @@ def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
         got = session_mod._download(stack, rows)
         want = stack[rows].cpu().numpy()
         assert all(g.tobytes() == w.tobytes() for g, w in zip(got, want)), (name, "alone")
-    rows = list(range(per_block))
-    alone = {"pinned": [], "pageable": []}
-    for _ in range(8):
-        for mode, fn in (("pinned", session_mod._download), ("pageable", _pageable_download)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(stack, rows)
-            alone[mode].append((time.perf_counter() - t0) * 1e3)
     stats_us = {}
     for what, fn in (("flat", torch.cuda.host_memory_stats),
                      ("_pinned_blocks", lambda: session_mod._pinned_blocks(DEV))):
@@ -4807,9 +4783,6 @@ def pinned_downloads(name, mod, make, per_block, frame_shape, steady_blocks):
             fn()
         stats_us[what] = (time.perf_counter() - t0) * 1e3
     return dict(config=name, held=held, steady_blocks=steady_blocks, turns=turns,
-                alone_bytes=per_block * int(np.prod(frame_shape)) * 4,
-                alone_ms={m: dict(median=float(np.median(v)), min=min(v), max=max(v))
-                          for m, v in alone.items()},
                 stats_read_us=stats_us, pool_after=_host_pool())
 
 
@@ -4828,7 +4801,7 @@ def pinned_download_phase(smi):
             on_frame=on_frame, on_plot=None if on_plot is None else lambda ev: on_plot(ev.values)),
             device=DEV)
 
-    wide = pinned_downloads("64MS/s Session", session_mod, session64, 1,
+    wide = pinned_downloads("64MS/s Session", session64, 1,
                             (g64.height, g64.width), 64)
     print("pinned downloads " + json.dumps(dict(card=smi, **wide)))
     srcs = [ReplayU8(CH5, render_test_pattern(CH5.height, CH5.width // 2 + 8 * c), 6, loop=True)
@@ -4841,7 +4814,7 @@ def pinned_download_phase(smi):
                             device=DEV)
 
     frames_a_block = 23  # 49 MB of 628 x 849 frames, a premade block's mean (PERF.md section 4)
-    many = pinned_downloads("8x16MS/s MultiSession", multisession_mod, multi, frames_a_block,
+    many = pinned_downloads("8x16MS/s MultiSession", multi, frames_a_block,
                             (CH5.height, CH5.width), 16)
     print("pinned downloads " + json.dumps(dict(card=smi, **many)))
     return wide, many

@@ -217,7 +217,7 @@ class TSDR:
 
         cfg = self._make_config(height=height, refreshrate=refreshrate)
         # superresolution sessions dispatch host-stitched float32 blocks
-        # regardless of the source's raw dtype (session._run_superres)
+        # regardless of the source's raw dtype (Session._superres_blocks)
         dtype = (np.float32 if self._params.superresolution
                  else self._source.block_dtype())
         if background:

@@ -11,14 +11,14 @@ frame cadence.
 The step runs through a ChannelRunner (stream/graph.py), cached per
 (config, params, N, cond_mode, device): on the card one CUDA-graph replay a
 block, as the JAX MultiSession dispatches one jitted block per call; on the
-CPU the same step eagerly. Per block: one stacked upload of the N raw
-blocks into the runner, the replay, ONE packed fetch of [N, PACKED + K]
-(every channel's frame-valid flags and round flag), then the valid frames
-and, where a round completed and on_plot is set, those channels' plots,
-copied to the host as Session copies them (stream/session.py
-_download_outputs). A session holds its runner while it runs and takes its
-state back in tensors of its own when the run ends. Under a profiler the loop carries
-Session's spans (stream/session.py): tsdr/source for each channel's block,
+CPU the same step eagerly. Per block, Session's dispatch (stream/session.py
+_dispatch_rows): one stacked upload of the N raw blocks into the runner,
+the replay, ONE packed fetch of [N, PACKED + K] (every channel's
+frame-valid flags and round flag), then the valid frames and, where a round
+completed and on_plot is set, those channels' plots, copied to the host. A
+session holds its runner while it runs (session._lease_runner) and takes
+its state back in tensors of its own when the run ends. Under a profiler
+the loop carries Session's spans: tsdr/source for each channel's block,
 tsdr/dispatch from the drop counts to the end of the fan-out.
 """
 
@@ -32,13 +32,16 @@ import numpy as np
 from ..config import PipelineConfig
 from ..device import resolve_device
 from ..errors import TSDRError, TSDRStatus
-from ..events import PLOT_ID, PlotEvent
 from ..params import Params
 from ..parallel.channels import stack_states
 from ..sources.base import Source
 from ..utils.profiling import span
-from .graph import PACKED, ChannelRunner
-from .session import DownloadStats, _cached_runner, _download, _download_outputs
+from .graph import ChannelRunner
+from .session import DownloadStats, _cached_runner, _dispatch_rows, _lease_runner
+
+# the frames come down through stream.session._download; the name stays
+# here because portbench/tests/test_bench_run.py patches it in both modules
+from .session import _download  # noqa: F401
 
 
 class MultiSession:
@@ -78,10 +81,7 @@ class MultiSession:
         self.on_plot = on_plot
         self.n_channels = len(sources)
         self.cond_mode = cond_mode
-        self._runner = _cached_runner(
-            ("channels", config, params, self.n_channels, cond_mode, self.device),
-            lambda: ChannelRunner(config, params, self.n_channels, self.device,
-                                  cond_mode=cond_mode))
+        self._runner = _cached_runner(*self._runner_key())
         self.state = stack_states(config, self.n_channels, params.fir_lowpass_taps, self.device)
         self._running = False
         self._thread: Optional[threading.Thread] = None
@@ -89,13 +89,12 @@ class MultiSession:
         self.frames_total = [0] * self.n_channels
         self.download_stats = DownloadStats()
 
-    def _hold_runner(self) -> None:
-        """Lease the cached runner; another session holding it gets one of
-        its own."""
-        if not self._runner.lease():
-            self._runner = ChannelRunner(self.config, self.params, self.n_channels, self.device,
-                                         cond_mode=self.cond_mode)
-            self._runner.lease()
+    def _runner_key(self) -> tuple:
+        """The session's runner key and the maker of its ChannelRunner."""
+        return (("channels", self.config, self.params, self.n_channels, self.cond_mode,
+                 self.device),
+                lambda: ChannelRunner(self.config, self.params, self.n_channels, self.device,
+                                      cond_mode=self.cond_mode))
 
     def run(self, max_blocks: Optional[int] = None,
             max_frames: Optional[int] = None) -> int:
@@ -107,7 +106,7 @@ class MultiSession:
         ctl = np.zeros((self.n_channels, 3), np.float64)  # drops; no sync shift, no motion blur
         blocks = 0
         frames = 0
-        self._hold_runner()
+        self._runner = _lease_runner(*self._runner_key())
         try:
             while self._running:
                 raws = []
@@ -118,8 +117,7 @@ class MultiSession:
                             return frames  # a source ended: stop the group
                         raws.append(np.asarray(blk.samples).reshape(-1))
                         ctl[c, 0] = int(blk.dropped)
-                with span("tsdr/dispatch"):
-                    frames += self._dispatch(raws, ctl)
+                frames += self._dispatch(raws, ctl)
                 blocks += 1
                 if max_blocks is not None and blocks >= max_blocks:
                     break
@@ -133,39 +131,29 @@ class MultiSession:
         return frames
 
     def _dispatch(self, raws: list, ctl: np.ndarray) -> int:
-        """One block of every channel through the runner, the one packed
-        fetch, the valid frames in one download, the completed rounds'
-        plots in another, fanned out to the callbacks; returns the frames
-        emitted."""
-        kf = self.config.frames_per_block
-        h, w = self.config.height, self.config.width
-        for c in range(self.n_channels):
-            self.samples_dropped_total[c] += int(ctl[c, 0])
-        self.state, out, packed = self._runner.run(self.state, raws, ctl)
-        with span("tsdr/fetch"):
-            rows = packed.tolist()  # the one fetch of the block
-        slots = [(c, k) for c, row in enumerate(rows) for k in range(kf)
-                 if row[len(PACKED) + k]]
-        done = [c for c, row in enumerate(rows)
-                if self.on_plot and row[PACKED.index("ac_plot_valid")]]
-        got, plots = _download_outputs(out, (h, w), [c * kf + k for c, k in slots], done,
-                                       self.download_stats, _download)
-        with span("tsdr/fanout"):
-            for (c, _), frame in zip(slots, got):
-                self.frames_total[c] += 1
-                if self.on_frame:
-                    with span("tsdr/callback"):
-                        self.on_frame(c, frame)
-            if done:
-                f_off, f_len = self.config.ac_frame_window
-                l_off, _ = self.config.ac_line_window
-                sr = self.config.samplerate
-                for row, c in zip(plots, done):
-                    with span("tsdr/callback"):
-                        self.on_plot(c, PlotEvent(PLOT_ID.FRAME, f_off, row[:f_len], sr))
-                    with span("tsdr/callback"):
-                        self.on_plot(c, PlotEvent(PLOT_ID.LINE, l_off, row[f_len:], sr))
-        return len(slots)
+        """One dispatch (a tsdr/dispatch span): one block of every channel
+        through _dispatch_rows, then every channel's frames and the plots
+        of the channels whose round completed, to the callbacks; returns
+        the frames emitted."""
+        with span("tsdr/dispatch"):
+            for c in range(self.n_channels):
+                self.samples_dropped_total[c] += int(ctl[c, 0])
+            self.state, rows = _dispatch_rows(self._runner, self.state, raws, ctl,
+                                              self.download_stats, plots=self.on_plot is not None)
+            total = 0
+            with span("tsdr/fanout"):
+                for c, (_, frames, _) in enumerate(rows):
+                    self.frames_total[c] += len(frames)
+                    total += len(frames)
+                    if self.on_frame:
+                        for frame in frames:
+                            with span("tsdr/callback"):
+                                self.on_frame(c, frame)
+                for c, (_, _, plots) in enumerate(rows):
+                    for ev in plots or ():
+                        with span("tsdr/callback"):
+                            self.on_plot(c, ev)
+            return total
 
     def start_async(self, **kw) -> None:
         """run(**kw) on a worker thread. Marked running before the thread

@@ -12,17 +12,19 @@ copy of the stacked blocks into the runner, the replay, ONE packed fetch of
 every block's frame-valid flags and small values (plots, meters), then the
 valid frames and the completed rounds' plots copied to the host (on the
 card into pinned memory from torch's caching host allocator, behind one
-wait for the stream), fanned out to the callbacks in stream order.
-batch_blocks > 1 costs batch_blocks x block latency for the controls. Under
-a profiler the loop is spans (utils/profiling.py span): tsdr/source for
-each block's arrival, tsdr/dispatch for each batch, holding the runner's
-tsdr/upload and tsdr/replay, tsdr/fetch, tsdr/download and tsdr/fanout, and
-tsdr/callback around each of the caller's callbacks.
+wait for the stream), fanned out to the callbacks in stream order. That
+dispatch, up to the fan-out, is _dispatch_rows, which MultiSession
+(stream/multisession.py) shares. batch_blocks > 1 costs batch_blocks x
+block latency for the controls. Under a profiler the loop is spans
+(utils/profiling.py span): tsdr/source for each block's arrival,
+tsdr/dispatch for each batch, holding the runner's tsdr/upload and
+tsdr/replay, tsdr/fetch, tsdr/download and tsdr/fanout, and tsdr/callback
+around each of the caller's callbacks.
 
 A session holds its runner's graph state while it runs (the runner's state
-is the session's, updated in place); when the run ends it takes its state
-back in tensors of its own, so a later session of the same key may hold the
-runner.
+is the session's, updated in place; _lease_runner); when the run ends it
+takes its state back in tensors of its own, so a later session of the same
+key may hold the runner.
 """
 
 from __future__ import annotations
@@ -63,8 +65,8 @@ AUTOGAIN_REPORT_EVERY_FRAMES = 5  # dsp.c:20
 # the allocator's first blocks and the graph's capture. warm_compile_step
 # pays that WHILE the current session still streams, so the stop -> start
 # switch costs only the stream gap. Runners are cached by (config, params,
-# batch_blocks, device); Session._build_steps takes the cached one or caches
-# the one it builds.
+# batch_blocks, device); a Session takes the cached one or caches the one it
+# builds.
 
 _WARM_LOCK = threading.Lock()
 _WARM_STEPS: dict = {}
@@ -92,10 +94,22 @@ def _cached_runner(key, make):
     return runner
 
 
-def _runner_for(config: PipelineConfig, params: Params, batch_blocks: int, device) -> BlockRunner:
-    """The cached runner of this key, built and cached on first use."""
-    return _cached_runner((config, params, int(batch_blocks), device),
-                          lambda: BlockRunner(config, params, batch_blocks, device))
+def _lease_runner(key, make):
+    """A runner of this key held for one run: the cached one, leased, or a
+    private one from make() when another holder has the cached one. The
+    run ends with the runner's release(state), which hands the holder its
+    state in tensors of its own."""
+    runner = _cached_runner(key, make)
+    if not runner.lease():
+        runner = make()
+        runner.lease()
+    return runner
+
+
+def _block_runner(config: PipelineConfig, params: Params, batch_blocks: int, device) -> tuple:
+    """A Session's runner key and the maker of its BlockRunner."""
+    return ((config, params, int(batch_blocks), device),
+            lambda: BlockRunner(config, params, batch_blocks, device))
 
 
 def warm_compile_step(config: PipelineConfig, params: Params, *,
@@ -113,7 +127,7 @@ def warm_compile_step(config: PipelineConfig, params: Params, *,
     "auto" (resolved like Session's)."""
     dev = resolve_device(device)
     batch_blocks = resolve_batch_blocks(config, batch_blocks, max_control_latency_s, dev)
-    runner = _runner_for(config, params, batch_blocks, dev)
+    runner = _cached_runner(*_block_runner(config, params, batch_blocks, dev))
     state = init_state(config, params.fir_lowpass_taps, dev)
     if not runner.lease():
         return
@@ -175,8 +189,8 @@ class Session:
         self.batch_blocks = resolve_batch_blocks(config, batch_blocks,
                                                  max_control_latency_s, self.device)
         self._pending_params: Optional[Params] = None
-        self._holding = False
-        self._build_steps(params)
+        self._runner = _cached_runner(*_block_runner(config, params, self.batch_blocks,
+                                                     self.device))
         self.state: StreamState = init_state(config, params.fir_lowpass_taps, self.device)
         self._pending_sync = 0
         self._motionblur = 0.0
@@ -187,31 +201,12 @@ class Session:
         self._loop_ident: Optional[int] = None
         self._agruns = 0
         self._last_refresh = None
-        self._last_plots: list = []
+        self._last_plots: tuple = ()
         # cumulative source-reported drops (UHD/Mirics samples_dropped
         # semantics, TSDRPlugin.h:49) — observability for overload diagnosis
         self.samples_dropped_total = 0
         self.download_stats = DownloadStats()
         self.meter = IngestMeter()
-
-    def _build_steps(self, params: Params) -> None:
-        self._runner = _runner_for(self.config, params, self.batch_blocks, self.device)
-        self._step = self._runner.step  # the device step, for one block by hand
-
-    def _hold_runner(self) -> None:
-        """Hold the runner's graph state for a run; a runner another session
-        holds is replaced by a private one of the same key."""
-        if not self._runner.lease():
-            self._runner = BlockRunner(self.config, self.params, self.batch_blocks, self.device)
-            self._step = self._runner.step
-            self._runner.lease()
-        self._holding = True
-
-    def _let_go_runner(self) -> None:
-        """End of a run: the state back in tensors of the session's own."""
-        if self._holding:
-            self.state = self._runner.release(self.state)
-            self._holding = False
 
     def set_params(self, new_params: Params) -> None:
         """Live param-flag change (the reference toggles params_int while
@@ -228,13 +223,9 @@ class Session:
         if new is None or new == self.params:
             return
         flip_lowpass = new.lowpass_before_sync != self.params.lowpass_before_sync
-        holding = self._holding
-        self._let_go_runner()
-        old_state = self.state
-        self.params = new
-        self._build_steps(new)
-        if holding:
-            self._hold_runner()
+        runner = _lease_runner(*_block_runner(self.config, new, self.batch_blocks, self.device))
+        old_state = self._runner.release(self.state)
+        self.params, self._runner = new, runner
         fresh = init_state(self.config, new.fir_lowpass_taps, self.device)
         if state_compatible(old_state, fresh):
             self.state = old_state
@@ -335,7 +326,7 @@ class Session:
     def current_refreshrate(self) -> float:
         """Nominal + carried PLL delta. Safe to call from any thread: a
         caller on another thread than a streaming loop gets the host mirror
-        refreshed at every emitted frame (_dispatch), which costs no device
+        refreshed at every emitted frame (_fan_out), which costs no device
         synchronization behind the loop's queued work; the loop's own
         thread (a callback) and callers of an idle session read the delta
         from one reference to the state."""
@@ -408,71 +399,105 @@ class Session:
         if self._pending_refresh:
             self._apply_refresh_nudge()
 
-    def _dispatch_blocks(self, raws, dropped) -> int:
-        """One dispatch (a tsdr/dispatch span): the runner's K blocks (a
-        list of blocks or one [K, 2n] array; each block's drop count in its
-        own slot, the pending sync shift in slot 0 only), then ONE packed
-        fetch, the valid frames in one download, the completed rounds'
-        plots in another, and each block's callbacks in stream order.
-        Returns the frames emitted."""
+    def _source_blocks(self):
+        """The source's blocks as (interleaved samples, drops), the pending
+        controls applied and the drops counted as each arrives; ends with
+        the stream or once the session stops."""
+        for blk in self.source.stream(self.config.block_samples):
+            if not self._running:
+                return
+            self._apply_pending_controls()
+            self.samples_dropped_total += blk.dropped
+            yield np.asarray(blk.samples).reshape(-1), blk.dropped
+
+    def _superres_blocks(self):
+        """Superbandwidth mode (PARAM_AUTOCORR_SUPERRESOLUTION): frequency
+        hops gathered from the source's blocks at native rate, stitched
+        into a HOPS-x-rate stream and yielded as blocks of float32 samples
+        with no drops — the reference's superb_run -> am_demod
+        path (TSDRLibrary.c:271-278); each native block's drops go to the
+        stitcher. The Session's config must already be built for
+        hops*native rate (api.TSDR does this when the param is set): this
+        raises before anything streams when it is not."""
+        from ..superband import SuperBandwidth
+
+        sb = SuperBandwidth(
+            self.source.samplerate(),
+            self.config.refreshrate,
+            retune=getattr(self.source, "set_freq_offset", lambda off: None),
+            device=self.device,
+        )
+        if abs(self.config.samplerate - sb.output_samplerate) > 1:
+            raise TSDRError(
+                TSDRStatus.WRONG_VIDEOPARAMS,
+                f"superresolution config needs samplerate {sb.output_samplerate}",
+            )
+
+        n = self.config.block_samples
+
+        def stitched():
+            carry = np.empty(0, np.complex64)
+            # hop gathering happens at the source's native block size
+            for raw, dropped in self._source_blocks():
+                f = _normalize_host(raw)
+                out = sb.feed((f[0::2] + 1j * f[1::2]).astype(np.complex64), dropped)
+                if out is None:
+                    continue
+                carry = np.concatenate([carry, out]) if carry.size else out
+                while carry.size >= n and self._running:
+                    block, carry = carry[:n], carry[n:]
+                    inter = np.empty(2 * n, np.float32)
+                    inter[0::2] = block.real
+                    inter[1::2] = block.imag
+                    yield inter, 0
+
+        return stitched()
+
+    def _dispatch_blocks(self, raws: list, dropped: list) -> int:
+        """One dispatch (a tsdr/dispatch span): the runner's K blocks (each
+        block's drop count in its own slot, the pending sync shift in slot
+        0 only) through _dispatch_rows, then each block's callbacks in
+        stream order. Returns the frames emitted."""
         with span("tsdr/dispatch"):
-            sync = self._pending_sync
-            self._pending_sync = 0
-            self.state, out, packed = self._runner.run(
-                self.state, raws, host_controls(dropped, sync, self._motionblur))
-            with span("tsdr/fetch"):
-                rows = packed.tolist()  # the one fetch of the batch
-            kf = self.config.frames_per_block
-            first_flag = len(PACKED)
-            slots = [(b, j) for b, row in enumerate(rows) for j in range(kf)
-                     if row[first_flag + j]]
-            rounds = [b for b, row in enumerate(rows) if row[PACKED.index("ac_plot_valid")]]
-            frames, plots = _download_outputs(
-                out, (self.config.height, self.config.width), [b * kf + j for b, j in slots],
-                rounds, self.download_stats, _download)
-            fw = out.ac_frame_plot.shape[1]
-            got_frames = iter(frames)
-            got_plots = iter(plots)
+            sync, self._pending_sync = self._pending_sync, 0
+            self.state, rows = _dispatch_rows(
+                self._runner, self.state, raws, host_controls(dropped, sync, self._motionblur),
+                self.download_stats, plots=True)  # dump_autocorr(windows=True) reads them
             total = 0
             with span("tsdr/fanout"):
-                for b, row in enumerate(rows):
-                    mine = [next(got_frames) for bj in slots if bj[0] == b]
-                    plot = next(got_plots) if b in rounds else None
-                    got = self._dispatch(dict(zip(PACKED, row)), mine,
-                                         None if plot is None else (plot[:fw], plot[fw:]))
+                for values, frames, plots in rows:
+                    got = self._fan_out(values, frames, plots)
                     total += got
                     self.meter.update(self.config.block_samples, got)
             return total
 
     def run(self, max_blocks: Optional[int] = None, max_frames: Optional[int] = None):
         """Synchronous loop (blocking like tsdr_readasync, TSDRLibrary.c:515).
-        Returns the number of frames emitted. The limits are tested after
-        each dispatch, so a batched session overshoots max_blocks to a whole
-        batch; a trailing partial batch at the end of the stream is not
-        dispatched. Each block's arrival (the source's next(), the controls
-        applied as it arrives) is a tsdr/source span; with the dispatches'
-        spans they tile the loop."""
-        if self.params.superresolution:
-            return self._run_superres(max_blocks, max_frames)
+        Returns the number of frames emitted. The blocks are the source's
+        or, under superresolution, the stitched stream's. The limits are
+        tested after each dispatch, so a batched session overshoots
+        max_blocks to a whole batch; a trailing partial batch at the end of
+        the stream is not dispatched. Each block's arrival (the source's
+        next(), the controls applied as it arrives) is a tsdr/source span;
+        with the dispatches' spans they tile the loop."""
+        blks = self._superres_blocks() if self.params.superresolution else self._source_blocks()
+        self._runner = _lease_runner(*_block_runner(self.config, self.params, self.batch_blocks,
+                                                    self.device))
         self._running = True
         self._loop_ident = threading.get_ident()
         blocks = frames = 0
         pending_raws: list = []
         pending_dropped: list = []
         try:
-            self._hold_runner()
-            blks = iter(self.source.stream(self.config.block_samples))
             while True:
                 with span("tsdr/source"):
                     blk = next(blks, None)
-                    if blk is None or not self._running:
+                    if blk is None:
                         break
-                    self._apply_pending_controls()
                     # each block's drop count rides at its own slot so
                     # compensation fires at the drop's true stream position
-                    pending_raws.append(np.asarray(blk.samples).reshape(-1))
-                    pending_dropped.append(blk.dropped)
-                    self.samples_dropped_total += blk.dropped
+                    pending_raws.append(blk[0])
+                    pending_dropped.append(blk[1])
                 if len(pending_raws) < self.batch_blocks:
                     continue
                 # the runner uploads one block as it is; a batch, one stacked copy
@@ -490,72 +515,7 @@ class Session:
             else:
                 raise
         finally:
-            self._let_go_runner()
-            self._running = False
-            self.source.stop()
-            if self.callbacks.on_stopped:
-                self.callbacks.on_stopped()
-        return frames
-
-    def _run_superres(self, max_blocks: Optional[int], max_frames: Optional[int]):
-        """Superbandwidth mode (PARAM_AUTOCORR_SUPERRESOLUTION): gather
-        frequency hops from the source at native rate, stitch them into a
-        HOPS-x-rate stream, and feed that through the pipeline — the
-        reference's superb_run -> am_demod path (TSDRLibrary.c:271-278).
-
-        The Session's config must already be built for hops*native rate
-        (api.TSDR does this when the param is set)."""
-        from ..superband import SuperBandwidth
-
-        sb = SuperBandwidth(
-            self.source.samplerate(),
-            self.config.refreshrate,
-            retune=getattr(self.source, "set_freq_offset", lambda off: None),
-            device=self.device,
-        )
-        if abs(self.config.samplerate - sb.output_samplerate) > 1:
-            raise TSDRError(
-                TSDRStatus.WRONG_VIDEOPARAMS,
-                f"superresolution config needs samplerate {sb.output_samplerate}",
-            )
-        self._running = True
-        self._loop_ident = threading.get_ident()
-        blocks = frames = 0
-        n = self.config.block_samples
-        carry = np.empty(0, np.complex64)
-        try:
-            self._hold_runner()
-            # hop gathering happens at the source's native block size
-            blks = iter(self.source.stream(n))
-            while True:
-                with span("tsdr/source"):
-                    blk = next(blks, None)
-                    if blk is None or not self._running:
-                        break
-                    self._apply_pending_controls()
-                    self.samples_dropped_total += blk.dropped
-                    f = _normalize_host(np.asarray(blk.samples))
-                    iq = (f[0::2] + 1j * f[1::2]).astype(np.complex64)
-                    out = sb.feed(iq, blk.dropped)
-                    if out is None:
-                        continue
-                    carry = np.concatenate([carry, out]) if carry.size else out
-                # whole batches of the stitched stream go through the steps
-                bb = self.batch_blocks
-                while carry.size >= bb * n and self._running:
-                    with span("tsdr/source"):  # the stitched stream's blocks
-                        batch, carry = carry[: bb * n], carry[bb * n:]
-                        inter = np.empty(2 * bb * n, np.float32)
-                        inter[0::2] = batch.real
-                        inter[1::2] = batch.imag
-                    frames += self._dispatch_blocks(inter.reshape(bb, 2 * n), [0] * bb)
-                    blocks += bb
-                    if max_blocks is not None and blocks >= max_blocks:
-                        self._running = False
-                    if max_frames is not None and frames >= max_frames:
-                        self._running = False
-        finally:
-            self._let_go_runner()
+            self.state = self._runner.release(self.state)
             self._running = False
             self.source.stop()
             if self.callbacks.on_stopped:
@@ -590,9 +550,9 @@ class Session:
             with span("tsdr/callback"):
                 self.callbacks.on_value(ev)
 
-    def _dispatch(self, vals: dict, frames: list, plots) -> int:
-        """One block's fetched values, downloaded frames and plots (frame
-        window, line window; None without a completed round) -> the
+    def _fan_out(self, vals: dict, frames: list, plots) -> int:
+        """One block's fetched values, downloaded frames and plot events
+        (frame window, line window; None without a completed round) -> the
         reference's callback streams; returns the number of frames."""
         if frames:
             rr = vals["refreshrate"]
@@ -614,11 +574,6 @@ class Session:
             else:
                 self._agruns += 1
         if plots is not None:
-            sr = self.config.samplerate
-            f_off, _ = self.config.ac_frame_window
-            l_off, _ = self.config.ac_line_window
-            plots = [PlotEvent(PLOT_ID.FRAME, f_off, plots[0], sr),
-                     PlotEvent(PLOT_ID.LINE, l_off, plots[1], sr)]
             self._last_plots = plots
             if self.callbacks.on_plot:
                 for p in plots:
@@ -689,13 +644,13 @@ def _download(stack: torch.Tensor, rows: list) -> list:
 
 
 def _download_outputs(out, frame_shape: tuple, frame_rows: list, plot_rows: list,
-                      stats: DownloadStats, download) -> tuple:
-    """A dispatch's valid frames (through `download`, the caller module's
-    _download, which tools wrap by name) and its completed rounds' plots
-    (each row the frame window, then the line window), in a tsdr/download
-    span and counted in stats. The plots' copy is queued ahead of the
-    frames', so the frames' one wait covers both. Returns (frames, plots),
-    lists of numpy rows."""
+                      stats: DownloadStats) -> tuple:
+    """A dispatch's valid frames (through this module's _download, looked
+    up at each call, so a wrapper set on it sees both sessions' frames) and
+    its completed rounds' plots (each row the frame window, then the line
+    window), in a tsdr/download span and counted in stats. The plots' copy
+    is queued ahead of the frames', so the frames' one wait covers both.
+    Returns (frames, plots), lists of numpy rows."""
     if not frame_rows and not plot_rows:
         return [], []
     device = out.frame.device
@@ -703,7 +658,7 @@ def _download_outputs(out, frame_shape: tuple, frame_rows: list, plot_rows: list
         made = _pinned_blocks(device)
         plot_host = _to_host(torch.cat([out.ac_frame_plot, out.ac_line_plot], dim=1),
                              plot_rows) if plot_rows else None
-        frames = download(out.frame.reshape(-1, *frame_shape), frame_rows)
+        frames = _download(out.frame.reshape(-1, *frame_shape), frame_rows)
         if plot_host is not None and not frame_rows:
             _wait_for_copies(device)
         plots = [] if plot_host is None else list(plot_host.numpy())
@@ -711,3 +666,33 @@ def _download_outputs(out, frame_shape: tuple, frame_rows: list, plot_rows: list
         stats.bytes += sum(a.nbytes for a in frames) + sum(a.nbytes for a in plots)
         stats.fresh_pinned += _pinned_blocks(device) - made
     return frames, plots
+
+
+def _dispatch_rows(runner: BlockRunner, state: StreamState, raws, controls,
+                   stats: DownloadStats, plots: bool) -> tuple:
+    """What a dispatch of either session does before its fan-out: the
+    runner's call on raws and controls, ONE packed fetch of its rows (a
+    Session's blocks, a MultiSession's channels), then the valid frames in
+    one download and, with `plots`, the completed rounds' plots in another
+    (_download_outputs). Returns (state, rows): per row its packed values
+    by PACKED name, its frames in slot order, and its plot events (frame
+    window, line window), or None without a completed round or without
+    `plots`."""
+    state, out, packed = runner.run(state, raws, controls)
+    with span("tsdr/fetch"):
+        rows = packed.tolist()  # the one fetch of the dispatch
+    cfg = runner.config
+    kf = cfg.frames_per_block
+    slots = [(r, j) for r, row in enumerate(rows) for j in range(kf) if row[len(PACKED) + j]]
+    rounds = [r for r, row in enumerate(rows) if plots and row[PACKED.index("ac_plot_valid")]]
+    frames, plot_rows = _download_outputs(out, (cfg.height, cfg.width),
+                                          [r * kf + j for r, j in slots], rounds, stats)
+    per_row = [[] for _ in rows]
+    for (r, _), frame in zip(slots, frames):
+        per_row[r].append(frame)
+    fw, sr = out.ac_frame_plot.shape[-1], cfg.samplerate
+    events = {r: (PlotEvent(PLOT_ID.FRAME, cfg.ac_frame_window[0], p[:fw], sr),
+                  PlotEvent(PLOT_ID.LINE, cfg.ac_line_window[0], p[fw:], sr))
+              for r, p in zip(rounds, plot_rows)}
+    return state, [(dict(zip(PACKED, row)), per_row[r], events.get(r))
+                   for r, row in enumerate(rows)]

@@ -127,12 +127,14 @@ class _Droppy(Source):
         self.working = False
 
 
-def test_multisession_fetches_and_drops(monkeypatch):
+@pytest.mark.parametrize("with_plots", [True, False], ids=["on_plot", "no-on_plot"])
+def test_multisession_fetches_and_drops(monkeypatch, with_plots):
     """Per block one packed fetch (one .tolist() of the runner's [C, PACKED
     + K] values) and no other host read; on a block where a channel
     completed a frame, one copy of the valid frames to the host; on a block
-    where a round completed, one of those channels' plots. download_stats
-    counts those copies. Drops stay per channel."""
+    where a round completed, one of those channels' plots, only with
+    on_plot set. download_stats counts those copies. Drops stay per
+    channel."""
     from tempestsdr_tpu_torch.stream import session as session_mod
     from tempestsdr_tpu_torch.stream.graph import PACKED, ChannelRunner
 
@@ -141,7 +143,8 @@ def test_multisession_fetches_and_drops(monkeypatch):
     n_plots = []
     ms = MultiSession(cfg, Params(), [_Droppy(TWIDTH + 8 * c, 5000 * (c == 1)) for c in range(C)],
                       on_frame=lambda c, f: got.__setitem__(c, got[c] + 1),
-                      on_plot=lambda c, ev: n_plots.append(c), device="cpu")
+                      on_plot=(lambda c, ev: n_plots.append(c)) if with_plots else None,
+                      device="cpu")
     calls = []
     for name in ("tolist", "item", "cpu", "__bool__", "__int__", "__float__"):
         orig = getattr(torch.Tensor, name)
@@ -169,18 +172,19 @@ def test_multisession_fetches_and_drops(monkeypatch):
     monkeypatch.undo()
     assert ms.samples_dropped_total == [0, 5000, 0]
     assert sum(got.values()) == total == sum(ms.frames_total) and min(got.values()) >= 3
-    assert n_plots and set(n_plots) == set(range(C))
+    assert set(n_plots) == (set(range(C)) if with_plots else set())
     assert len(packs) == 20
     emitting = rounds = 0
     for b, packed in enumerate(packs):
         block_calls = calls[marks[b]:marks[b + 1]]
         emit = bool(packed[:, len(PACKED):].any())
         done = bool(packed[:, PACKED.index("ac_plot_valid")].any())
-        assert block_calls == ["tolist"] + ["to_host"] * (emit + done), (b, block_calls)
+        assert block_calls == ["tolist"] + ["to_host"] * (emit + (done and with_plots)), \
+            (b, block_calls)
         emitting += emit
         rounds += done
     assert emitting >= 5 and rounds >= 1
-    assert ms.download_stats.downloads == emitting + rounds
+    assert ms.download_stats.downloads == emitting + rounds * with_plots
     assert ms.download_stats.fresh_pinned == 0
 
 

@@ -73,7 +73,7 @@ class Pkg:
             sess.state, out = sess._step(sess.state, jnp.asarray(samples), ctrl)
         else:
             ctrl = self.pipeline.StepControls(dropped, 0, 0.0)
-            sess.state, out = sess._step(sess.state, torch.from_numpy(samples), ctrl)
+            sess.state, out = sess._runner.step(sess.state, torch.from_numpy(samples), ctrl)
         return bool(out.frame_valid), np.asarray(out.frame)
 
 
