@@ -169,6 +169,18 @@
    share over two steady stretches and the pinned host memory held; ms a
    block of the session and of its downloads; one block's download alone,
    consecutive and gathered rows, bit for bit the stack's .cpu();
+9e. the uploads through the runners' pinned staging buffers (phase 14,
+   pinned_upload_phase, its "pinned uploads" lines): the host copy into a
+   pinned buffer by np.copyto against torch's copy_ (and the np.stack it
+   replaced), the BlockRunner at K = 1 and 4 at 64 MS/s and config 5's
+   ChannelRunner at C = 8 with uint8, int16 and float32 raws against the
+   CPU step (integers exact, frames within GRAPH_TOL), none waiting and
+   every call staged but K = 1's (a lone row is copied in directly); two
+   calls back to back without a fetch, the caller overwriting its blocks
+   between them, behind a device sleep so the second waits on the first's
+   copies, still the CPU step's; a Session at 64 MS/s at batch 1 and 4
+   and a MultiSession at config 5 over steady blocks: no wait, no pinned
+   block made by the uploads, staged share 1.0 (0 at batch 1);
 10. prints a JSON line of the floors, a JSON line of per-kernel numbers,
    then, as the last line, {"ok": true, "device": {...}}.
 
@@ -177,6 +189,7 @@ before printing any result.
 """
 
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -1407,7 +1420,7 @@ def _timed(owner, name, spent):
 
 def channels_split(cfg, srcs, n_blocks=8):
     """MultiSession.run with the host clock read around the runner's run
-    (the stacked upload and the replay), the packed fetch (.tolist(), which
+    (the staged upload and the replay), the packed fetch (.tolist(), which
     waits for the replay) and the frame and plot downloads, per block; then
     one block's worth of valid frames downloaded alone, on an idle card,
     into pageable memory."""
@@ -4820,6 +4833,189 @@ def pinned_download_phase(smi):
     return wide, many
 
 
+# ---- phase 14: the uploads through the runners' pinned staging buffers --------
+
+UPLOAD_DTYPES = (np.uint8, np.int16, np.float32)
+UPLOAD_BLOCKS = 8  # 64 MS/s: two batches of 4, about 5 frames
+UPLOAD_CH_BLOCKS = 3  # config 5: about 8 frames a channel
+GUARD_SLEEP_CYCLES = 200_000_000  # about 0.1 s of the card's clock queued ahead of a call
+
+
+def host_copy_ms(n_rows, n2, dtype, reps=21):
+    """ms to copy n_rows rows of n2 samples into a pinned [n_rows, n2]
+    buffer: by np.copyto into its numpy view (the runner's choice) and by
+    torch's CPU copy_ (on its intra-op threads), beside the pageable
+    np.stack the runner made before; medians of reps in turns. Each rep
+    reads other rows, views into a looped stream of at least 256 MB (as
+    the benchmark's premade source yields its blocks), so the source is
+    cold in the host's caches as a stream's next block is."""
+    itemsize = np.dtype(dtype).itemsize
+    sets = max(2, (256 << 20) // (n_rows * n2 * itemsize))
+    looped = np.resize(emanation(CH5, dtype, 1)[1], sets * n_rows * (n2 + 7) + n2)
+    rows = [looped[r * (n2 + 7): r * (n2 + 7) + n2] for r in range(sets * n_rows)]
+    host = torch.empty((n_rows, n2), dtype=torch.from_numpy(looped[:0]).dtype, pin_memory=True)
+    view = host.numpy()
+    ways = {"np.copyto": lambda pick: [np.copyto(view[i], r) for i, r in enumerate(pick)],
+            "torch copy_": lambda pick: [host[i].copy_(torch.from_numpy(r))
+                                         for i, r in enumerate(pick)],
+            "np.stack (pageable, before)": np.stack}
+    times = {k: [] for k in ways}
+    for rep in range(reps):
+        for j, (k, fn) in enumerate(ways.items()):
+            pick = rows[((rep * len(ways) + j) % sets) * n_rows:][:n_rows]
+            t0 = time.perf_counter()
+            fn(pick)
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    for way in ("np.copyto", "torch copy_"):
+        view.fill(0)
+        ways[way](rows[:n_rows])
+        assert view.tobytes() == np.stack(rows[:n_rows]).tobytes(), way
+    return dict(rows=n_rows, row_bytes=n2 * itemsize, dtype=np.dtype(dtype).name,
+                threads=torch.get_num_threads(), source_sets=sets,
+                ms={k: float(np.median(v)) for k, v in times.items()})
+
+
+def stats_change(runner, before):
+    """What runner.upload_stats counted since `before` (a copy of them)."""
+    return {k: getattr(runner.upload_stats, k) - getattr(before, k)
+            for k in ("uploads", "bytes", "staged", "waits")}
+
+
+def uploaded(runner, batches, what):
+    """The runner over the batches (each its [rows, 2n] raws, given as a
+    list of 1-D rows or as an array, with no controls) from a fresh state,
+    a packed fetch after each call as a session makes it, none waiting and
+    every call staged but a lone row's (copied in directly): (the valid
+    frames as (row, frame) in stream order, the state)."""
+    before = dataclasses.replace(runner.upload_stats)
+    n = runner.n_blocks
+    state = (stack_states(runner.config, n, device=DEV) if isinstance(runner, ChannelRunner)
+             else init_state(runner.config, device=DEV))
+    frames = []
+    for raws in batches:
+        state, out, packed = runner.run(state, raws, np.zeros((n, 3)))
+        packed.tolist()
+        frames += [(r, f) for (r, *_), f in _valid_frames(out, (n,))]
+    got = stats_change(runner, before)
+    staged = len(batches) if n > 1 else 0
+    assert got["uploads"] == len(batches) and got["staged"] == staged and got["waits"] == 0, (
+        what, got)
+    return frames, state
+
+
+def back_to_back(runner, blocks, want, want_state, what):
+    """Two calls of a K = 4 runner without a fetch between them, the second
+    batch written into the caller's array the first call was given as soon
+    as that call returns, the first call's copies held back behind a sleep
+    on the card: the second call waits once for them, and both calls' frames
+    and the state are still the CPU step's."""
+    k = runner.n_blocks
+    state = init_state(runner.config, device=DEV)
+    before = dataclasses.replace(runner.upload_stats)
+    raws = np.stack(blocks[:k])
+    torch.cuda._sleep(GUARD_SLEEP_CYCLES)
+    state, out, _ = runner.run(state, raws, np.zeros((k, 3)))
+    first = StepOutputs(*(x.clone() for x in out))
+    raws[:] = np.stack(blocks[k:2 * k])
+    state, out, packed = runner.run(state, raws, np.zeros((k, 3)))
+    packed.tolist()
+    frames = [f for o in (first, out) for _, f in _valid_frames(o, (k,))]
+    got = stats_change(runner, before)
+    assert got["uploads"] == got["staged"] == 2 and got["waits"] == 1, (what, got)
+    return dict(max_abs_err_vs_cpu_step=held_to_cpu_step(frames, state, want, want_state, what),
+                frames=len(frames), **got)
+
+
+def block_uploads(g64, dtype):
+    """The BlockRunner at K = 1 (a list of one view a call, as Session
+    passes it) and K = 4 (a [4, 2n] array) over UPLOAD_BLOCKS blocks of
+    `dtype`, each against the CPU step over the same blocks; then the two
+    calls back to back."""
+    name = np.dtype(dtype).name
+    blocks = np.split(emanation(g64, dtype, UPLOAD_BLOCKS)[1], UPLOAD_BLOCKS)
+    want, want_state = cpu_step(g64, Params(), blocks)
+    rows = {}
+    for k in (1, 4):
+        runner = BlockRunner(g64, Params(), k, DEV)
+        batches = ([[b] for b in blocks] if k == 1 else
+                   [np.stack(blocks[b:b + k]) for b in range(0, UPLOAD_BLOCKS, k)])
+        frames, state = uploaded(runner, batches, f"BlockRunner K={k} {name}")
+        rows[f"K={k}"] = dict(frames=len(frames), max_abs_err_vs_cpu_step=held_to_cpu_step(
+            [f for _, f in frames], state, want, want_state, f"pinned upload K={k} {name}"))
+    rows["back to back, K=4"] = back_to_back(runner, blocks, want, want_state,
+                                             f"back to back {name}")
+    return rows
+
+
+def channel_uploads(dtype):
+    """Config 5's ChannelRunner (C = 8, unrolled) over UPLOAD_CH_BLOCKS
+    blocks of `dtype`, each channel its own stretch of the emanation, a
+    list of 8 rows a call as MultiSession passes them, against the CPU's
+    channel step over the same blocks."""
+    name = np.dtype(dtype).name
+    flat = emanation(CH5, dtype, N_CH + UPLOAD_CH_BLOCKS)[1]
+    n2 = 2 * CH5.block_samples
+    batches = [[flat[(b + c) * n2:(b + c + 1) * n2] for c in range(N_CH)]
+               for b in range(UPLOAD_CH_BLOCKS)]
+    want, _, want_state = eager_channel_frames(
+        make_channels_step_hybrid(CH5, Params(), N_CH, device="cpu"),
+        [np.stack(b) for b in batches])
+    frames, state = uploaded(ChannelRunner(CH5, Params(), N_CH, DEV), batches,
+                             f"ChannelRunner C=8 {name}")
+    per = [[f for c, f in frames if c == ch] for ch in range(N_CH)]
+    err = 0.0
+    for ch in range(N_CH):
+        assert len(per[ch]) == len(want[ch]) > 0, (name, ch, len(per[ch]), len(want[ch]))
+        err = max([err] + [float(np.abs(a - b).max()) for a, b in zip(per[ch], want[ch])])
+    assert err <= GRAPH_TOL, (name, err)
+    same_ints(state, want_state, f"pinned upload C=8 {name}")
+    return dict(frames=sum(map(len, per)), max_abs_err_vs_cpu_step=err)
+
+
+def steady_uploads(name, sess, steady_blocks):
+    """A session over 4 blocks (the capture, the pool's first blocks), then
+    steady_blocks more: in the steady stretch no wait, no pinned block made
+    but the downloads' own, and every call staged (none at one row a call,
+    whose row is copied in directly)."""
+    sess.run(max_blocks=4)
+    before, made = dataclasses.replace(sess.upload_stats), session_mod._pinned_blocks(DEV)
+    fresh = sess.download_stats.fresh_pinned
+    sess.run(max_blocks=steady_blocks)
+    got = stats_change(sess._runner, before)
+    by_uploads = (session_mod._pinned_blocks(DEV) - made) - (sess.download_stats.fresh_pinned
+                                                             - fresh)
+    staged = got["uploads"] if sess._runner.n_blocks > 1 else 0
+    assert got["uploads"] > 0 and got["staged"] == staged and got["waits"] == 0, (name, got)
+    assert by_uploads == 0, (name, by_uploads)
+    return dict(session=name, staged_share=got["staged"] / got["uploads"],
+                pinned_blocks_made_by_uploads=by_uploads, **got)
+
+
+def pinned_upload_phase(smi):
+    """Phase 14 (see the module docstring, 9e)."""
+    n2 = 2 * CH5.block_samples
+    copies = [host_copy_ms(N_CH, n2, np.uint8), host_copy_ms(1, n2, np.uint8),
+              host_copy_ms(N_CH, n2, np.float32)]
+    print("pinned uploads host copy " + json.dumps(dict(card=smi, copies=copies)))
+    g64 = GEOMETRIES["64MS/s"]
+    held = {}
+    for dtype in UPLOAD_DTYPES:
+        held[f"64MS/s BlockRunner {np.dtype(dtype).name}"] = block_uploads(g64, dtype)
+        held[f"config 5 ChannelRunner {np.dtype(dtype).name}"] = channel_uploads(dtype)
+    print("pinned uploads held " + json.dumps(dict(card=smi, **held)))
+    raster = render_test_pattern(g64.height, g64.width // 2)
+    sessions = {f"64MS/s Session, batch {k}": Session(
+        g64, Params(), ReplayU8(g64, raster, 8, loop=True), batch_blocks=k, device=DEV)
+        for k in (1, 4)}
+    srcs = [ReplayU8(CH5, render_test_pattern(CH5.height, CH5.width // 2 + 8 * c), 6, loop=True)
+            for c in range(N_CH)]
+    sessions["8x16MS/s MultiSession"] = MultiSession(CH5, Params(), srcs,
+                                                     on_frame=lambda c, f: None, device=DEV)
+    loops = [steady_uploads(name, sess, 32) for name, sess in sessions.items()]
+    print("pinned uploads loops " + json.dumps(dict(card=smi, loops=loops)))
+    return copies, held, loops
+
+
 def main():
     if len(sys.argv) == 3 and sys.argv[1] == "--first-block" and sys.argv[2] in ("cold", "warm"):
         return first_block(sys.argv[2])
@@ -4896,6 +5092,7 @@ def smoke():
     sharded_launches, range_row = sharded_phase(smi)
     live_launches = live_phase(smi, channel_launches.pop("simlive"))
     pinned_download_phase(smi)
+    pinned_upload_phase(smi)
     print(f"smoke run took {time.time() - t_start:.1f} s after the card query")
 
     kern = []

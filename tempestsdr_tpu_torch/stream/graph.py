@@ -6,15 +6,17 @@ is a CUDA graph: the device step (pipeline.make_step) reads nothing to the
 host, so K of its calls can be captured once and replayed per batch.
 
 BlockRunner(config, params, n_blocks, device).run(state, raws, controls):
-raws [K, 2n] in the source's dtype (or a list of K blocks, which the
-runner stacks), controls [K, 3] (samples_dropped, syncoffset, motionblur
-per block, as numbers or one float64 tensor). Returns (state', outputs
-stacked over the blocks, packed), where packed is float64 [K, PACKED +
-frames_per_block]: per block the small values a session reads once per
-batch (refreshrate, autogain, round count and flag, then one frame_valid
-flag per emit slot; see packed_values). A call is two spans
-(utils/profiling.py span): tsdr/upload (the stacking, the copies into the
-graph's static inputs) and tsdr/replay; a capture is tsdr/capture.
+raws [K, 2n] in the source's dtype (or a list of K blocks), controls [K,
+3] (samples_dropped, syncoffset, motionblur per block, as numbers or one
+float64 tensor). Returns (state', outputs stacked over the blocks,
+packed), where packed is float64 [K, PACKED + frames_per_block]: per block
+the small values a session reads once per batch (refreshrate, autogain,
+round count and flag, then one frame_valid flag per emit slot; see
+packed_values). A call is two spans (utils/profiling.py span): tsdr/upload
+(the rows staged, their copies into the graph's static inputs queued) and
+tsdr/replay; a capture is tsdr/capture. upload_stats (UploadStats) counts
+the calls, their bytes, those staged through pinned memory and the waits
+on a staging buffer still in flight.
 
 On a CUDA device the runner captures, once per raw dtype, the K steps into
 one torch.cuda.CUDAGraph over static buffers: the raw blocks [K, 2n], the
@@ -24,16 +26,29 @@ runs inside kernels.graph_cond.branch_nodes, so every branch of the step
 (pipeline._cond: the FFT round, each emit slot, the sync-skip shift, per
 channel in the channel step) is a pair of CUDA-graph IF nodes and a replay
 runs only the taken side, as the JAX program's lax.conds do; a branch that
-cannot be made a node raises. Before capture one step runs on a side
-stream on a scratch copy of the state, in the select form (both sides of
-every branch run), so every body's kernels, the cuFFT plan, the kernels'
-library load and the allocator's first blocks are made outside the graph.
-A replay then copies in only the leaves of `state` that are not the
-runner's own (the first call, a checkpoint, an autocorrelation reset, a
-refresh nudge, another owner) and returns the runner's state: a caller
-that passes it back pays no copy. The outputs and packed are the
-graph's and are rewritten by the next replay. A failed capture or replay
-raises; there is no eager fallback on the card.
+cannot be made a node raises. Beside each graph the runner keeps pinned
+host buffers shaped like its raws and controls: a call copies each host
+row of the caller's into its row there (np.copyto, one thread) and queues
+that row's copy to the card at once (non_blocking), so row i's DMA runs
+while the host copies row i + 1, and the replay follows on the same
+stream; an event recorded after the last copy guards the buffers, and the
+next call waits on it before it writes them (in a session's loop the
+fetch has waited already). Rows already on the card
+are copied there directly, and so are a one-row call's raws and controls
+(a Session at batch 1), as blocking copies: CUDA's own copy of one
+pageable row overlaps its CPU copy with the DMA, where a staged row's DMA
+follows its copy. The caller's arrays are free once run returns.
+
+Before capture one step runs on a side stream on a scratch copy of the
+state, in the select form (both sides of every branch run), so every
+body's kernels, the cuFFT plan, the kernels' library load and the
+allocator's first blocks are made outside the graph. A replay then copies
+in only the leaves of `state` that are not the runner's own (the first
+call, a checkpoint, an autocorrelation reset, a refresh nudge, another
+owner) and returns the runner's state: a caller that passes it back pays
+no copy. The outputs and packed are the graph's and are rewritten by the
+next replay. A failed capture or replay raises; there is no eager
+fallback on the card.
 
 On the CPU (the tests) the same device step runs eagerly in a loop, its
 branches as selects.
@@ -61,6 +76,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -98,8 +114,10 @@ def _stack(outs) -> StepOutputs:
 
 
 class _Graph(NamedTuple):
-    """One capture: the graph, its static inputs and outputs, and its branch
-    nodes (their bodies' memory pool lives as long as the graph)."""
+    """One capture: the graph, its static inputs and outputs, its branch
+    nodes (their bodies' memory pool lives as long as the graph), the
+    pinned host buffers its inputs are staged in (None at one row) and the
+    event recorded after their last copies."""
 
     graph: torch.cuda.CUDAGraph
     raws: torch.Tensor
@@ -107,6 +125,25 @@ class _Graph(NamedTuple):
     outputs: StepOutputs
     packed: torch.Tensor
     branches: graph_cond.Branches
+    host_raws: torch.Tensor | None
+    host_ctl: torch.Tensor | None
+    copied: torch.cuda.Event
+
+
+@dataclass
+class UploadStats:
+    """A runner's uploads: its calls, their bytes (raws and controls), the
+    calls that staged their host rows through its pinned buffer (none on
+    the CPU, none of one row), and the calls that found a staging buffer's
+    copies still in flight and waited for them."""
+    uploads: int = 0
+    bytes: int = 0
+    staged: int = 0
+    waits: int = 0
+
+    @property
+    def staged_share(self) -> float:
+        return self.staged / max(self.uploads, 1)
 
 
 class BlockRunner:
@@ -125,6 +162,7 @@ class BlockRunner:
         self._static: StreamState | None = None
         self._lock = threading.Lock()
         self._held = False
+        self.upload_stats = UploadStats()
 
     # ---- one holder of the graph's state at a time
 
@@ -167,21 +205,31 @@ class BlockRunner:
 
     def run(self, state: StreamState, raws, controls):
         with span("tsdr/upload"):
-            raws = _as_rows(raws)
-            if raws.dim() != 2 or raws.shape[0] != self.n_blocks:
-                raise ValueError(f"{tuple(raws.shape)} {self.rows}, the runner takes "
-                                 f"[{self.n_blocks}, 2n]")
+            rows = _rows(raws, self.n_blocks, self.rows)
             ctl = torch.as_tensor(controls, dtype=torch.float64)
             if tuple(ctl.shape) != (self.n_blocks, 3):
                 raise ValueError(f"controls {tuple(ctl.shape)}, the runner takes "
                                  f"[{self.n_blocks}, 3]")
+            stats = self.upload_stats
+            stats.uploads += 1
+            stats.bytes += sum(row.nbytes for row in rows) + ctl.nbytes
             if self.graphed:
-                g = self.prepare(raws.dtype)
+                g = self.prepare(rows[0].dtype)
                 _copy_in(self._static, state)
-                g.raws.copy_(raws)
-                g.ctl.copy_(ctl)
+                if len(rows) == 1:
+                    # CUDA's own copy of a pageable row overlaps its CPU copy
+                    # with the DMA; staged here, the DMA would follow the copy
+                    g.raws[0].copy_(rows[0])
+                    g.ctl.copy_(ctl)
+                else:
+                    if not all(x.is_cuda for x in [*rows, ctl]) and not g.copied.query():
+                        stats.waits += 1  # the last call's copies out of the buffers
+                        g.copied.synchronize()
+                    stats.staged += _stage(rows, g.host_raws, g.raws)
+                    _stage([ctl], [g.host_ctl], [g.ctl])
+                    g.copied.record()
             else:
-                raws, ctl = raws.to(self.device), ctl.to(self.device)
+                raws, ctl = torch.stack(rows).to(self.device), ctl.to(self.device)
         with span("tsdr/replay"):
             if self.graphed:
                 g.graph.replay()
@@ -221,7 +269,12 @@ class BlockRunner:
             packed = packed_values(outputs)
             _write_leaves(self._static, state)
         graph.instantiate()
-        return _Graph(graph, raws, ctl, outputs, packed, branches)
+        # one row goes in directly (run): no staging buffers
+        host_raws, host_ctl = ((torch.empty(raws.shape, dtype=dtype, pin_memory=True),
+                                torch.empty(ctl.shape, dtype=ctl.dtype, pin_memory=True))
+                               if k > 1 else (None, None))
+        return _Graph(graph, raws, ctl, outputs, packed, branches, host_raws, host_ctl,
+                      torch.cuda.Event())
 
     def census(self, dtype=torch.uint8) -> dict:
         """The node counts of the graph captured for raws of `dtype`:
@@ -450,12 +503,37 @@ class StagedRunner:
         return [g.census() for g in s.graphs]
 
 
-def _as_rows(raws) -> torch.Tensor:
-    """A runner's raws as one [rows, 2n] tensor: a list of 1-D blocks
-    stacked (one block as a view, no copy), an array or tensor as it is."""
+def _rows(raws, n_rows: int, what: str) -> list:
+    """A runner's raws as its n_rows rows, tensors over the caller's memory
+    (no copy): a list of 1-D blocks as it is, an array or tensor [n_rows,
+    2n] by its leading axis. Any other shape raises, the shape of a list
+    named as its stack's."""
     if isinstance(raws, list):
-        raws = raws[0][None] if len(raws) == 1 else np.stack(raws)
-    return torch.as_tensor(raws)
+        if any(np.shape(row) != np.shape(raws[0]) for row in raws):
+            raise ValueError("all input arrays must have the same shape")
+        shape = (len(raws), *np.shape(raws[0])) if raws else (0,)
+    else:
+        raws = raws if isinstance(raws, torch.Tensor) else np.asarray(raws)
+        shape = tuple(raws.shape)
+    if len(shape) != 2 or shape[0] != n_rows:
+        raise ValueError(f"{shape} {what}, the runner takes [{n_rows}, 2n]")
+    return [row if isinstance(row, torch.Tensor) else torch.as_tensor(np.asarray(row))
+            for row in raws]
+
+
+def _stage(rows, hosts, dsts) -> bool:
+    """rows[i] into dsts[i]: a row on the card copied there directly, any
+    other first copied into hosts[i] (a pinned buffer on the card) by
+    np.copyto on this thread, then its copy into dsts[i] queued at once,
+    non-blocking, so its DMA runs while the host copies the next row.
+    Returns whether a row went through hosts."""
+    staged = False
+    for row, host, dst in zip(rows, hosts, dsts):
+        if not row.is_cuda:
+            np.copyto(host.numpy(), row.numpy())
+            row, staged = host, True
+        dst.copy_(row, non_blocking=True)
+    return staged
 
 
 def _write_leaves(dst: StreamState, src: StreamState) -> None:

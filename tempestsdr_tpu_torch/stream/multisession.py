@@ -12,9 +12,10 @@ The step runs through a ChannelRunner (stream/graph.py), cached per
 (config, params, N, cond_mode, device): on the card one CUDA-graph replay a
 block, as the JAX MultiSession dispatches one jitted block per call; on the
 CPU the same step eagerly. Per block, Session's dispatch (stream/session.py
-_dispatch_rows): one stacked upload of the N raw blocks into the runner,
-the replay, ONE packed fetch of [N, PACKED + K] (every channel's
-frame-valid flags and round flag), then the valid frames and, where a round
+_dispatch_rows): the N raw blocks staged row by row in the runner's
+pinned buffer, each row's copy to the card queued at once, the replay,
+ONE packed fetch of [N, PACKED + K] (every channel's frame-valid flags
+and round flag), then the valid frames and, where a round
 completed and on_plot is set, those channels' plots, copied to the host. A
 session holds its runner while it runs (session._lease_runner) and takes
 its state back in tensors of its own when the run ends. Under a profiler
@@ -36,7 +37,7 @@ from ..params import Params
 from ..parallel.channels import stack_states
 from ..sources.base import Source
 from ..utils.profiling import span
-from .graph import ChannelRunner
+from .graph import ChannelRunner, UploadStats
 from .session import DownloadStats, _cached_runner, _dispatch_rows, _lease_runner
 
 # the frames come down through stream.session._download; the name stays
@@ -88,6 +89,12 @@ class MultiSession:
         self.samples_dropped_total = [0] * self.n_channels
         self.frames_total = [0] * self.n_channels
         self.download_stats = DownloadStats()
+
+    @property
+    def upload_stats(self) -> UploadStats:
+        """The uploads of the session's runner (stream/graph.py), counted
+        across every holder of that runner."""
+        return self._runner.upload_stats
 
     def _runner_key(self) -> tuple:
         """The session's runner key and the maker of its ChannelRunner."""

@@ -7,19 +7,23 @@ calls applied between blocks — no locks.
 The steps run through a BlockRunner (stream/graph.py) of batch_blocks
 blocks: on the card one CUDA-graph replay per batch (batch_blocks=1
 replays a one-block graph), as the JAX Session scans batch_blocks blocks
-per dispatch; on the CPU the same device step in a loop. Per batch: one
-copy of the stacked blocks into the runner, the replay, ONE packed fetch of
-every block's frame-valid flags and small values (plots, meters), then the
-valid frames and the completed rounds' plots copied to the host (on the
-card into pinned memory from torch's caching host allocator, behind one
-wait for the stream), fanned out to the callbacks in stream order. That
-dispatch, up to the fan-out, is _dispatch_rows, which MultiSession
-(stream/multisession.py) shares. batch_blocks > 1 costs batch_blocks x
-block latency for the controls. Under a profiler the loop is spans
-(utils/profiling.py span): tsdr/source for each block's arrival,
-tsdr/dispatch for each batch, holding the runner's tsdr/upload and
-tsdr/replay, tsdr/fetch, tsdr/download and tsdr/fanout, and tsdr/callback
-around each of the caller's callbacks.
+per dispatch; on the CPU the same device step in a loop. Per batch: each
+block copied into the runner's pinned staging buffer and its copy to the
+card queued at once (no stacked host array, no blocking copy; at batch 1
+the one block copied in directly), the replay, ONE packed fetch of every block's frame-valid flags and small
+values (plots, meters), then the valid frames and the completed rounds'
+plots copied to the host (on the card into pinned memory from torch's
+caching host allocator, behind one wait for the stream), fanned out to
+the callbacks in stream order. That dispatch, up to the fan-out, is
+_dispatch_rows, which MultiSession (stream/multisession.py) shares.
+batch_blocks > 1 costs batch_blocks x block latency for the controls.
+Under a profiler the loop is spans (utils/profiling.py span):
+tsdr/source for each block's arrival, tsdr/dispatch for each batch,
+holding the runner's tsdr/upload (the blocks copied in, a batch's
+through pinned memory) and tsdr/replay, tsdr/fetch, tsdr/download and
+tsdr/fanout, and tsdr/callback around each of the caller's callbacks.
+upload_stats are the runner's (UploadStats), download_stats the
+session's (DownloadStats).
 
 A session holds its runner's graph state while it runs (the runner's state
 is the session's, updated in place; _lease_runner); when the run ends it
@@ -44,7 +48,7 @@ from ..events import PLOT_ID, VALUE_ID, PlotEvent, ValueEvent
 from ..params import DIRECTION, Params
 from ..sources.base import Source
 from ..utils.profiling import IngestMeter, auto_batch_blocks, span
-from .graph import PACKED, BlockRunner, host_controls
+from .graph import PACKED, BlockRunner, UploadStats, host_controls
 from .state import (
     StreamState,
     init_state,
@@ -207,6 +211,12 @@ class Session:
         self.samples_dropped_total = 0
         self.download_stats = DownloadStats()
         self.meter = IngestMeter()
+
+    @property
+    def upload_stats(self) -> UploadStats:
+        """The uploads of the session's runner (stream/graph.py), counted
+        across every holder of that runner."""
+        return self._runner.upload_stats
 
     def set_params(self, new_params: Params) -> None:
         """Live param-flag change (the reference toggles params_int while
@@ -500,7 +510,7 @@ class Session:
                     pending_dropped.append(blk[1])
                 if len(pending_raws) < self.batch_blocks:
                     continue
-                # the runner uploads one block as it is; a batch, one stacked copy
+                # the runner stages a batch's blocks in its pinned buffer
                 raws, dropped = pending_raws, pending_dropped
                 pending_raws, pending_dropped = [], []
                 frames += self._dispatch_blocks(raws, dropped)

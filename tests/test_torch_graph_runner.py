@@ -1,8 +1,9 @@
 """The port's block runner (stream.graph.BlockRunner: K device steps a
 call, one CUDA-graph replay on the card, a loop on the CPU), make_scan_runner
-and Session's batch path on the CPU, and the device step at K == 4 and with
-every host read made to raise; helpers and scenarios in
-tests/test_torch_device_step.py."""
+and Session's batch path on the CPU, the device step at K == 4 and with
+every host read made to raise, and the runner's upload: its rows staged
+through a host buffer (a plain one here, pinned on the card) and
+UploadStats; helpers and scenarios in tests/test_torch_device_step.py."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,14 @@ from tempestsdr_tpu.stream.session import _build_step_fns as j_build_step_fns
 from tempestsdr_tpu_torch.params import Params
 from tempestsdr_tpu_torch.stream import init_state, make_step
 from tempestsdr_tpu_torch.stream import pipeline as tpipe
-from tempestsdr_tpu_torch.stream.graph import PACKED, BlockRunner, host_controls
+from tempestsdr_tpu_torch.stream.graph import (
+    PACKED,
+    BlockRunner,
+    UploadStats,
+    _rows,
+    _stage,
+    host_controls,
+)
 from tempestsdr_tpu_torch.stream.pipeline import StepControls
 from tempestsdr_tpu_torch.stream.state import state_leaves
 
@@ -189,3 +197,141 @@ def test_session_fetches_once_per_batch(monkeypatch, batch):
     assert 1 <= calls.count("to_host") <= 2 * (16 // batch)
     assert sess.download_stats.downloads == calls.count("to_host")
     assert len(frames) >= 5 and len(plots) >= 2 and int(sess.state.frame_count) == len(frames)
+
+
+STAGE_DTYPES = [np.uint8, np.int8, np.int16, np.float32]
+
+
+def _raw_rows(k, n2, dtype, seed):
+    """k rows of n2 raw samples of `dtype` spread over the dtype's range."""
+    rng = np.random.default_rng(seed)
+    if np.issubdtype(dtype, np.integer):
+        info = np.iinfo(dtype)
+        return rng.integers(info.min, info.max, size=(k, n2), endpoint=True).astype(dtype)
+    return rng.standard_normal((k, n2)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", STAGE_DTYPES, ids=lambda d: np.dtype(d).name)
+@pytest.mark.parametrize("form", ["list", "view", "ndarray", "tensor"])
+def test_staged_rows_land_row_for_row(form, dtype):
+    """The runner's staging (stream.graph._rows, _stage) with a plain host
+    buffer in the pinned one's place: a list of 4 blocks, one block given as
+    a view into a longer looped stream (as the benchmark's premade source
+    yields them), a [4, 2n] array and a [4, 2n] tensor each land row for row
+    in the host buffer and in the destination, in their own dtype, and the
+    caller's rows are left as they were."""
+    n2 = 96
+    want = _raw_rows(1 if form == "view" else 4, n2, dtype, seed=len(form))
+    if form == "list":
+        raws = list(want.copy())
+    elif form == "view":
+        looped = np.concatenate([_raw_rows(1, 40, dtype, 9)[0], want[0], want[0][:8]])
+        raws = [looped[40:40 + n2]]
+        assert raws[0].base is looped
+    elif form == "ndarray":
+        raws = want.copy()
+    else:
+        raws = torch.from_numpy(want.copy())
+    rows = _rows(raws, len(want), "blocks")
+    tdtype = torch.from_numpy(want).dtype
+    assert all(row.dtype == tdtype and row.shape == (n2,) for row in rows)
+    host = torch.zeros(want.shape, dtype=tdtype)
+    dst = torch.zeros(want.shape, dtype=tdtype)
+    assert _stage(rows, host, dst) is True
+    for got in (host, dst):
+        assert got.dtype == tdtype and got.numpy().tobytes() == want.tobytes()
+    again = np.stack([np.asarray(r) for r in raws])
+    assert again.dtype == want.dtype and again.tobytes() == want.tobytes()
+
+
+def test_staged_controls_land_as_one_row():
+    """The controls go through their own host buffer as one [K, 3] row, as
+    the runner stages them, exact in float64."""
+    ctl = torch.as_tensor(host_controls([3, 0, 11, 2], 5, 0.25), dtype=torch.float64)
+    host, dst = torch.zeros(4, 3, dtype=torch.float64), torch.zeros(4, 3, dtype=torch.float64)
+    assert _stage([ctl], [host], [dst]) is True
+    assert torch.equal(host, ctl) and torch.equal(dst, ctl)
+
+
+@pytest.mark.parametrize("case,raws,controls,message", [
+    ("one block, no leading axis", np.zeros(64, np.uint8), np.zeros((2, 3)),
+     "(64,) blocks, the runner takes [2, 2n]"),
+    ("a list of 3 blocks", [np.zeros(64, np.uint8)] * 3, np.zeros((2, 3)),
+     "(3, 64) blocks, the runner takes [2, 2n]"),
+    ("a list of one block", [np.zeros(64, np.uint8)], np.zeros((2, 3)),
+     "(1, 64) blocks, the runner takes [2, 2n]"),
+    ("an array of 3 blocks", np.zeros((3, 64), np.int16), np.zeros((2, 3)),
+     "(3, 64) blocks, the runner takes [2, 2n]"),
+    ("a tensor of one block", torch.zeros(1, 64), np.zeros((2, 3)),
+     "(1, 64) blocks, the runner takes [2, 2n]"),
+    ("a stack of stacks", np.zeros((2, 4, 16), np.uint8), np.zeros((2, 3)),
+     "(2, 4, 16) blocks, the runner takes [2, 2n]"),
+    ("controls of one block", np.zeros((2, 64), np.uint8), np.zeros((1, 3)),
+     "controls (1, 3), the runner takes [2, 3]"),
+    ("controls of 4 numbers", np.zeros((2, 64), np.uint8), np.zeros((2, 4)),
+     "controls (2, 4), the runner takes [2, 3]"),
+])
+def test_runner_refuses_shapes_in_the_same_words(case, raws, controls, message):
+    """The runner's shape and controls errors keep their wording (the shape
+    of a list named as its stack's) and count no upload."""
+    _, tcfg = _configs(K1_BLOCK)
+    runner = BlockRunner(tcfg, Params(), 2, device="cpu")
+    state = init_state(tcfg, device="cpu")
+    with pytest.raises(ValueError) as err:
+        runner.run(state, raws, controls)
+    assert str(err.value) == message, case
+    assert runner.upload_stats == UploadStats()
+
+
+def test_ragged_blocks_are_refused_as_the_stack_refused_them():
+    """A list of blocks of different lengths raises numpy's stack error."""
+    _, tcfg = _configs(K1_BLOCK)
+    runner = BlockRunner(tcfg, Params(), 2, device="cpu")
+    with pytest.raises(ValueError, match="all input arrays must have the same shape"):
+        runner.run(init_state(tcfg, device="cpu"),
+                   [np.zeros(64, np.uint8), np.zeros(32, np.uint8)], np.zeros((2, 3)))
+
+
+def test_upload_stats_count_on_the_cpu():
+    """UploadStats on the CPU: every call of the runner an upload, its bytes
+    those of its raws and controls, none staged (no pinned buffer), no
+    wait; Session and MultiSession read their runner's stats."""
+    from dataclasses import replace
+
+    from tempestsdr_tpu_torch.sources.synthetic import SyntheticSource
+    from tempestsdr_tpu_torch.stream.multisession import MultiSession
+    from tempestsdr_tpu_torch.stream.session import Session
+
+    _, tcfg = _configs(K1_BLOCK)
+    runner = BlockRunner(tcfg, Params(), 2, device="cpu")
+    state = init_state(tcfg, device="cpu")
+    blocks = _blocks(4, K1_BLOCK)
+    state, _, _ = runner.run(state, blocks[:2], host_controls([0, 0], 0, 0.0))
+    state, _, _ = runner.run(state, np.stack(blocks[2:]), host_controls([0, 0], 0, 0.0))
+    per_call = 2 * 2 * K1_BLOCK + 2 * 3 * 8
+    assert runner.upload_stats == UploadStats(uploads=2, bytes=2 * per_call, staged=0, waits=0)
+    assert runner.upload_stats.staged_share == 0.0
+
+    def source():
+        src = SyntheticSource()
+        src.init(f"{LINES} {TWIDTH} {REFRESH} {SR} 0.01")
+        return src
+
+    sess = Session(tcfg, Params(), source(), batch_blocks=2, device="cpu")
+    before = replace(sess.upload_stats)
+    sess.run(max_blocks=6)
+    assert sess.upload_stats is sess._runner.upload_stats
+    got = sess.upload_stats
+    raw_bytes = 2 * K1_BLOCK * np.dtype(source().block_dtype()).itemsize
+    per_call = 2 * raw_bytes + 2 * 3 * 8
+    assert (got.uploads - before.uploads, got.bytes - before.bytes) == (3, 3 * per_call)
+    assert (got.staged, got.waits) == (before.staged, before.waits) == (0, 0)
+
+    multi = MultiSession(tcfg, Params(), [source(), source(), source()], device="cpu")
+    before = replace(multi.upload_stats)
+    multi.run(max_blocks=2)
+    got = multi.upload_stats
+    assert got is multi._runner.upload_stats
+    per_call = 3 * raw_bytes + 3 * 3 * 8
+    assert (got.uploads - before.uploads, got.bytes - before.bytes) == (2, 2 * per_call)
+    assert (got.staged, got.waits) == (0, 0)
